@@ -3,26 +3,37 @@
     python3 chip_smoke.py [--out DIR]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version on the card, serves the
-``llama3-8b`` smoke config through the fused kernel (B2) and the full
-``llama3-8b`` width through the GEMM kernel (B1), and checks the launch
-counts.  Imports nothing of JAX and nothing of the reference package.
+holds each against its plain PyTorch version on the card, and serves
+three paths, checking each one's launch counts:
+
+- ``llama3-8b``: the smoke config through the fused kernel (B2), the
+  full width through the GEMM kernel (B1) and ``goma_combine``;
+- ``rwkv6-7b``: the smoke config (card tokens == CPU tokens) and the
+  full width, with the prefill's WKV6 scans through B3;
+- ``zamba2-2.7b``: the smoke config (card tokens == CPU tokens) and the
+  full width, with the prefill's Mamba2 scans through B4 and the shared
+  block's MLP through B1 and ``goma_combine``.
+
+Imports nothing of JAX and nothing of the reference package.
 
 Output: one line per phase with its time; then the card's name and power
 limit, a ``{"kernels": [...]}`` JSON line, and as the last line
 ``{"ok": true, "device": {...}}``.  With ``--out DIR`` the per-shape
 kernel numbers also go to ``DIR/chip_smoke.json``, and one more
-full-width ``generate`` runs under ``torch.profiler``: device time by
-kernel and the device's busy and idle shares go to
-``DIR/profile_serve.{json,txt}``.  Any failed phase
-raises and ends the script with a non-zero code; without a CUDA card it
-prints no result.
+full-width ``generate`` of each model runs under ``torch.profiler``:
+device time by kernel and the device's busy and idle shares go to
+``DIR/profile_serve.{json,txt}`` (llama3-8b),
+``DIR/profile_serve_rwkv.{json,txt}`` and
+``DIR/profile_serve_zamba2.{json,txt}``.  Any failed phase raises and
+ends the script with a non-zero code; without a CUDA card it prints no
+result.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import pathlib
 import statistics
@@ -46,7 +57,33 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 FUSED_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 # tests/test_kernels.py's MATRIX_SHAPES that need padding on some axis
 ODD_SHAPES = [(300, 200, 100), (129, 257, 65), (100, 50, 1)]
+# every path serves batch 4 and 8 new tokens
 FULL = dict(arch="llama3-8b", batch=4, prompt_len=16, new_tokens=8)
+# the recurrent paths' prompts: 200 is two chunks of 128 at full width,
+# the second one padded; 12 is two chunks of the smoke configs' 8
+RECURRENT = dict(prompt_len=200, smoke_prompt_len=12)
+# the served bf16 MLPs that run B1 and goma_combine: their rows at decode
+# and in the prefill (batch x prompt), and their (d_ff, d_model)
+SERVED_MLPS = {
+    "llama3-8b": ((FULL["batch"], FULL["batch"] * FULL["prompt_len"]),
+                  14336, 4096),
+    "zamba2-2.7b": ((FULL["batch"],
+                     FULL["batch"] * RECURRENT["prompt_len"]), 10240, 2560)}
+# the scans against their plain versions: the reference's tolerances
+# (tests/test_kernels.py), relative to the plain version's largest
+# magnitude: y 1e-4 (bf16 y 5e-2), state 2e-3 (B3) and 1e-3 (B4)
+SCAN_Y_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+WKV_STATE_TOL, SSD_STATE_TOL = 2e-3, 1e-3
+# full-width prefill logits, kernel path (B3/B4, and B1 in zamba2's
+# shared MLP) against the plain path (chunked scans, plain MLP) on the
+# card, on the served model's weights computed in fp32, relative to the
+# plain logits' largest magnitude.  Sums taken in another order differ by
+# about 1e-7 relative per operation; 32 or 54 layers leave them near
+# 5e-5, and a wrong scan moves the logits by their whole scale.  In the
+# served bf16 model such a difference flips bf16 roundings (2^-8) that
+# every later layer of a random-weight model carries and amplifies, so
+# the bf16 gap is measured and not held to a tolerance.
+PATH_TOL = 1e-3
 SEED = 0
 
 
@@ -95,6 +132,10 @@ def close(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
     return float(err.max())
 
 
+def dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
 def rand(shape, dtype, gen, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
@@ -117,7 +158,7 @@ def check_b1(shape, dtype, gen, *, timed: bool) -> dict:
     torch.cuda.synchronize()
     row = {"shape": [M, N, K], "padded": [pm, pn, pk],
            "block": list(plan.block), "grid_order": "".join(plan.grid_order),
-           "dtype": str(dtype).removeprefix("torch."),
+           "dtype": dtype_name(dtype),
            "max_abs_err": close(got, want, TOL[dtype])}
     if timed:
         # the work the product needs: the unpadded operands and flops
@@ -157,7 +198,7 @@ def check_b2(M, FF, K, dtype, gen, *, plan=None, timed: bool) -> dict:
                              f"(plan {plan})")
     row = {"shape": [M, FF, K], "padded": list(plan.padded),
            "bm": plan.bm, "bk": plan.bk,
-           "dtype": str(dtype).removeprefix("torch."),
+           "dtype": dtype_name(dtype),
            "bitwise_equal_composition": True,
            "max_abs_err": close(got, want, FUSED_TOL[dtype])}
     if timed:
@@ -187,7 +228,7 @@ def check_combine(shape, dtype, gen, *, timed: bool) -> dict:
     got = goma_combine(g, u)
     want = goma_combine_plain(g, u, "silu_mul")
     torch.cuda.synchronize()
-    row = {"shape": list(shape), "dtype": str(dtype).removeprefix("torch."),
+    row = {"shape": list(shape), "dtype": dtype_name(dtype),
            "max_abs_err": close(got, want, TOL[dtype])}
     if timed:
         n = g.numel()
@@ -199,59 +240,242 @@ def check_combine(shape, dtype, gen, *, timed: bool) -> dict:
     return row
 
 
-# ------------------------------------------------------------ phases 4-5
+def close_to_scale(got: torch.Tensor, want: torch.Tensor,
+                   tol: float) -> float:
+    """Max abs error; raises unless it is within tol of the plain
+    version's scale, max(1, max |want|)."""
+    err = float((got.float() - want.float()).abs().max())
+    scale = max(1.0, float(want.float().abs().max()))
+    if not err <= tol * scale:
+        raise AssertionError(f"kernel disagrees with its plain version: "
+                             f"max abs err {err:.3g} > {tol} x {scale:.3g}")
+    return err
+
+
+def device_kernels(fn) -> dict:
+    """The device kernels one call of fn runs, by name, with their
+    counts (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def brief(row: dict) -> dict:
+    """A scan row with the plain version's device kernels by name only
+    where they come from cuBLAS (the rest go to --out)."""
+    return {**row, "plain_device_kernels": {
+        k[:90]: n for k, n in row["plain_device_kernels"].items()
+        if "gemm" in k or "gemv" in k}}
+
+
+def wkv6_ops(B, S, H, P, C) -> int:
+    """Operations of the WKV6 scan (an exp counts as one), per chunk and
+    head: the intra-chunk scores (sub, exp, two multiplies and an add
+    for each t > s and p), the bonus, the decay folds, y = scores @ v +
+    r @ S, and the state update."""
+    per = (C * (C - 1) // 2 * P * 5 + C * P * 3 + C * P * 5
+           + C * (C + 1) // 2 * P * 2 + C * P * P * 2
+           + C * P * P * 2 + P * P)
+    return B * H * (S // C) * per
+
+
+def ssd_ops(B, S, H, P, N, C) -> int:
+    """Operations of the SSD scan (an exp counts as one): C Bm^T once per
+    batch row and chunk (it is the same for every head); per chunk and
+    head the cumsum, xh . dt, the decayed scores, y = scores @ xdt +
+    exp(cum) C S^T, and the state update."""
+    per_row = C * (C + 1) // 2 * N * 2
+    per_head = (C * 2 + C * P + C * (C + 1) // 2 * 3
+                + C * (C + 1) // 2 * P * 2 + C * N * P * 2 + C * P * 2
+                + C + P * N * C * 2 + P * N + C * P + C * 2)
+    return B * (S // C) * (per_row + H * per_head)
+
+
+def check_wkv6(shape, chunk, dtype, gen) -> dict:
+    """B3 against its plain version and, in y, against the sequential
+    oracle, which sums in another order; with kernel and plain times, the
+    bound, and the device kernels the plain version runs."""
+    from repro_torch.kernels.ref import wkv6_ref
+    from repro_torch.kernels.wkv6 import wkv6_scan, wkv6_scan_plain
+    B, S, H, P = shape
+    r, k, v = (rand(shape, dtype, gen, 0.5) for _ in range(3))
+    logw = (-torch.exp(torch.randn(shape, generator=gen, device="cuda")
+                       - 2.0)).to(dtype)
+    u = torch.randn((H, P), generator=gen, device="cuda") * 0.3
+    y, st = wkv6_scan(r, k, v, logw, u, chunk=chunk)
+    want_y, want_st = wkv6_scan_plain(r, k, v, logw, u, chunk=chunk)
+    torch.cuda.synchronize()
+    row = {"shape": list(shape), "chunk": chunk,
+           "dtype": dtype_name(dtype),
+           "y_scale": float(want_y.float().abs().max()),
+           "max_abs_err": close_to_scale(y, want_y, SCAN_Y_TOL[dtype]),
+           "state_max_abs_err": close_to_scale(st, want_st, WKV_STATE_TOL),
+           "oracle_max_abs_err": close_to_scale(
+               y, wkv6_ref(*(t.float() for t in (r, k, v, logw)), u),
+               SCAN_Y_TOL[dtype]),
+           "plain_device_kernels": device_kernels(
+               lambda: wkv6_scan_plain(r, k, v, logw, u, chunk=chunk))}
+    # bytes: r, k, v, logw read and y written once, u, the final state
+    nbytes = (5 * B * S * H * P * dtype.itemsize + H * P * 4
+              + B * H * P * P * 4)
+    bound, by = bound_ms(nbytes, wkv6_ops(B, S, H, P, chunk), torch.float32)
+    row.update(
+        ms=time_ms(lambda: wkv6_scan(r, k, v, logw, u, chunk=chunk)),
+        plain_ms=time_ms(
+            lambda: wkv6_scan_plain(r, k, v, logw, u, chunk=chunk)),
+        library_ms=None, bound_ms=bound, bound_by=by)
+    print(f"  B3 {brief(row)}")
+    return row
+
+
+def check_ssd(shape, chunk, dtype, gen) -> dict:
+    """B4 against its plain version and, in y, against the sequential
+    oracle (with D = 0), which sums in another order; with kernel and
+    plain times, the bound, and the device kernels the plain version
+    runs."""
+    from repro_torch.kernels.mamba2_ssd import ssd_scan, ssd_scan_plain
+    from repro_torch.kernels.ref import ssd_ref
+    B, S, H, P, N = shape
+    xh = rand((B, S, H, P), dtype, gen, 0.5)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device="cuda")).to(dtype)
+    a_log = torch.randn((H,), generator=gen, device="cuda") * 0.2
+    Bm, Cm = (rand((B, S, N), dtype, gen, 0.5) for _ in range(2))
+    y, st = ssd_scan(xh, dt, a_log, Bm, Cm, chunk=chunk)
+    want_y, want_st = ssd_scan_plain(xh, dt, a_log, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    row = {"shape": list(shape), "chunk": chunk,
+           "dtype": dtype_name(dtype),
+           "y_scale": float(want_y.float().abs().max()),
+           "max_abs_err": close_to_scale(y, want_y, SCAN_Y_TOL[dtype]),
+           "state_max_abs_err": close_to_scale(st, want_st, SSD_STATE_TOL),
+           "oracle_max_abs_err": close_to_scale(
+               y, ssd_ref(*(t.float() for t in (xh, dt, a_log, Bm, Cm)),
+                          torch.zeros_like(a_log)), SCAN_Y_TOL[dtype]),
+           "plain_device_kernels": device_kernels(
+               lambda: ssd_scan_plain(xh, dt, a_log, Bm, Cm, chunk=chunk))}
+    # bytes: xh, dt, Bm, Cm read and y written once, a_log, the final state
+    nbytes = ((2 * B * S * H * P + B * S * H + 2 * B * S * N) * dtype.itemsize
+              + H * 4 + B * H * P * N * 4)
+    bound, by = bound_ms(nbytes, ssd_ops(B, S, H, P, N, chunk), torch.float32)
+    row.update(
+        ms=time_ms(lambda: ssd_scan(xh, dt, a_log, Bm, Cm, chunk=chunk)),
+        plain_ms=time_ms(
+            lambda: ssd_scan_plain(xh, dt, a_log, Bm, Cm, chunk=chunk)),
+        library_ms=None, bound_ms=bound, bound_by=by)
+    print(f"  B4 {brief(row)}")
+    return row
+
+
+# ------------------------------------------------------------ phases 4-9
+def kernel_fns() -> dict:
+    """The kernel wrappers by name; each counts its launches."""
+    from repro_torch.kernels import (goma_combine, goma_fused_matmul,
+                                     goma_matmul, ssd_scan, wkv6_scan)
+    return {fn.__name__: fn for fn in (goma_matmul, goma_fused_matmul,
+                                       goma_combine, wkv6_scan, ssd_scan)}
+
+
+def checked_key(name: str, row: dict) -> tuple:
+    """A phase-3 row's kernel, shape (with the chunk of a scan) and
+    dtype, as recording_shapes names a launch."""
+    return (name, tuple(row["shape"]) + ((row["chunk"],) if "chunk" in row
+                                         else ()), row["dtype"])
+
+
+@contextlib.contextmanager
+def recording_shapes(seen: dict):
+    """Count in ``seen`` every B1, goma_combine, B3 and B4 call made
+    through the modules that the model reaches them by, keyed as
+    checked_key names the phase-3 rows."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import rwkv, ssm
+    sites = (
+        (ops, "goma_matmul", lambda a, b, plan, **kw:
+         ((plan.M, plan.N, plan.K), a.dtype)),
+        (ops, "goma_combine", lambda g, u, *args, **kw:
+         (tuple(g.shape), g.dtype)),
+        (rwkv, "wkv6_scan", lambda r, k, v, logw, u, *, chunk:
+         (tuple(r.shape) + (chunk,), r.dtype)),
+        (ssm, "ssd_scan", lambda xh, dt, a_log, Bm, Cm, *, chunk:
+         (tuple(xh.shape) + (Bm.shape[-1], chunk), xh.dtype)))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
+
+    def recorder(name, fn, key):
+        def call(*args, **kw):
+            shape, dtype = key(*args, **kw)
+            k = (name, shape, dtype_name(dtype))
+            seen[k] = seen.get(k, 0) + 1
+            return fn(*args, **kw)
+        return call
+
+    for (mod, name, key), (_, _, fn) in zip(sites, saved):
+        setattr(mod, name, recorder(name, fn, key))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def reset_launches() -> None:
-    from repro_torch.kernels import goma_combine, goma_fused_matmul
-    from repro_torch.kernels import goma_matmul
-    for fn in (goma_matmul, goma_fused_matmul, goma_combine):
+    for fn in kernel_fns().values():
         fn.launches = 0
 
 
-def serve_smoke() -> dict:
-    """llama3-8b smoke, fused MLP, fp32: one set of weights made on the
-    CPU; greedy tokens on the card (kernels) equal those on the CPU (plain
-    versions)."""
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_fns().items()}
+
+
+def serve_smoke(arch: str, prompt_len: int, expect: tuple[str, ...],
+                **knobs) -> dict:
+    """``arch``'s smoke config, fp32, with the config ``knobs`` set: one
+    set of weights made on the CPU; greedy tokens on the card (kernels)
+    equal those on the CPU (plain versions), and every kernel named in
+    ``expect`` launched on the card."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import goma_fused_matmul
     from repro_torch.models import build_model
     from repro_torch.models.model import tree_to
     from repro_torch.serving import Engine, ServeConfig
-    cfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
-                              fused_mlp=True)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **knobs)
     model = build_model(cfg)
     params = model.init_params(torch.Generator().manual_seed(SEED), "cpu")
     prompts = np.random.default_rng(SEED).integers(
-        0, cfg.vocab, (FULL["batch"], FULL["prompt_len"])).astype(np.int32)
+        0, cfg.vocab, (FULL["batch"], prompt_len)).astype(np.int32)
     scfg = ServeConfig(max_new_tokens=FULL["new_tokens"], cache_len=32)
     cpu_tokens = Engine(model, params, scfg).generate(prompts)
     card = Engine(model, tree_to(params, "cuda"), scfg)
     reset_launches()
     card_tokens = card.generate(prompts)
-    launches = goma_fused_matmul.launches
-    if launches <= 0:
-        raise AssertionError("the smoke run never launched B2")
+    launches = launch_counts()
+    missing = [k for k in expect if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the {arch} smoke run never launched "
+                             f"{missing}: {launches}")
     if not np.array_equal(card_tokens, cpu_tokens):
         raise AssertionError(f"card tokens {card_tokens.tolist()} != CPU "
                              f"tokens {cpu_tokens.tolist()}")
     print(f"  smoke tokens (card == cpu): {card_tokens.tolist()}")
-    print(f"  B2 launches: {launches}")
-    return {"goma_fused_matmul": launches}
+    print(f"  launches: {launches}")
+    return launches
 
 
-def serve_full(smi: str, out: pathlib.Path | None) -> dict:
-    """llama3-8b at its published widths, 32 layers, bf16, fused MLP on,
-    random weights made on the card: every MLP goes through B1, with
-    goma_combine between the links.  With ``out``, one more generate runs
-    under the profiler."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import goma_combine, goma_matmul
-    from repro_torch.models import build_model
-    from repro_torch.serving import Engine, ServeConfig
-    cfg = dataclasses.replace(get_config(FULL["arch"]), fused_mlp=True)
-    model = build_model(cfg)
-    torch.cuda.reset_peak_memory_stats()
-    params = model.init_params(
-        torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+def free_device() -> None:
+    """Drop the last phase's model and caches, so that the next phase's
+    peak memory is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def watch_logits(model) -> list:
+    """Record, for every forward pass of ``model``, whether its logits
+    are all finite (a device tensor, read after the run)."""
     finite = []
     lm_logits = model._lm_logits
 
@@ -261,28 +485,118 @@ def serve_full(smi: str, out: pathlib.Path | None) -> dict:
         return out
 
     model._lm_logits = checked_logits
-    B, S, new = FULL["batch"], FULL["prompt_len"], FULL["new_tokens"]
-    eng = Engine(model, params, ServeConfig(max_new_tokens=new,
-                                            cache_len=S + new + 8))
+    return finite
+
+
+def prefill_paths(cfg, params, toks) -> dict:
+    """The first prefill's logits, kernel path against plain path: held
+    within PATH_TOL in fp32 on the served weights; measured in the
+    served bf16."""
+    from repro_torch.models import build_model
+
+    def tree_float(tree):
+        return {k: tree_float(v) if isinstance(v, dict) else v.float()
+                for k, v in tree.items()}
+
+    def logits(c, p):
+        with torch.inference_mode():
+            return build_model(c).prefill(p, {"tokens": toks},
+                                          max_len=toks.shape[1])[0]
+
+    plain_cfg = dataclasses.replace(cfg, use_pallas_scan=False,
+                                    fused_mlp=False)
+    f32 = dict(compute_dtype="float32")
+    params32 = tree_float(params)
+    want = logits(dataclasses.replace(plain_cfg, **f32), params32)
+    err32 = close_to_scale(logits(dataclasses.replace(cfg, **f32),
+                                  params32), want, PATH_TOL)
+    del params32, want
+    free_device()
+    want = logits(plain_cfg, params)
+    scale = float(want.float().abs().max())
+    got = logits(cfg, params)
+    return {"fp32_max_abs_err": err32,
+            "bf16_max_abs_err": float((got - want).float().abs().max()),
+            "bf16_scale": scale,
+            "bf16_argmax_agree": float((got.argmax(-1) == want.argmax(-1))
+                                       .float().mean())}
+
+
+def expected_launches(cfg, passes: int) -> dict:
+    """Every kernel's launches in one full-width generate of ``passes``
+    forward passes.  Unfused MLPs (llama3-8b's layers, zamba2-2.7b's
+    shared block; the chains do not fuse at these widths) take three B1
+    launches and one goma_combine a pass; the scans run once per layer,
+    in the prefill only (decode is the recurrent step)."""
+    mlps = {"dense": cfg.layers, "rwkv": 0,
+            "hybrid": cfg.layers // max(cfg.attn_every, 1)}[cfg.family]
+    mlps = mlps if cfg.fused_mlp else 0
+    scans = cfg.layers if cfg.use_pallas_scan else 0
+    return {"goma_matmul": 3 * mlps * passes, "goma_fused_matmul": 0,
+            "goma_combine": mlps * passes,
+            "wkv6_scan": scans if cfg.family == "rwkv" else 0,
+            "ssd_scan": scans if cfg.family == "hybrid" else 0}
+
+
+def serve_full(arch: str, prompt_len: int, smi: str,
+               out: pathlib.Path | None, profile_name: str, checked: set,
+               *, check_paths: bool, **knobs) -> dict:
+    """``arch`` at its published widths, bf16, random weights made on the
+    card, with the config ``knobs`` set.  With ``check_paths`` the first
+    prefill's logits are held against the plain path's on the card
+    (prefill_paths).  Then one generate with exact launch counts
+    (expected_launches), every kernel launched at a shape and dtype in
+    ``checked`` (the phase-3 rows, by checked_key), and finite logits;
+    and a second, timed.  With ``out``, one more generate runs under the
+    profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import Engine, ServeConfig
+    cfg = dataclasses.replace(get_config(arch), **knobs)
+    model = build_model(cfg)
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    B, S, new = FULL["batch"], prompt_len, FULL["new_tokens"]
     prompts = np.random.default_rng(SEED).integers(
         0, cfg.vocab, (B, S)).astype(np.int32)
+    paths = None
+    if check_paths:
+        paths = prefill_paths(
+            cfg, params, torch.as_tensor(prompts, dtype=torch.int64,
+                                         device="cuda"))
+        print(f"  first prefill, kernel path vs plain path: {paths} "
+              f"(fp32 tol {PATH_TOL} x scale)")
+        free_device()
+
+    finite = watch_logits(model)
+    eng = Engine(model, params, ServeConfig(max_new_tokens=new,
+                                            cache_len=S + new + 8))
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    tokens = eng.generate(prompts)
-    launches = goma_matmul.launches
-    combines = goma_combine.launches
+    seen = {}
+    with recording_shapes(seen):
+        tokens = eng.generate(prompts)
+    counts = launch_counts()
     passes = len(finite)
     if tokens.shape != (B, new) or not ((tokens >= 0)
                                         & (tokens < cfg.vocab)).all():
         raise AssertionError(f"bad tokens {tokens.tolist()}")
     if not all(bool(f) for f in finite):
-        raise AssertionError("non-finite logits at full width")
-    want = 3 * cfg.layers * passes
-    if launches != want:
-        raise AssertionError(f"B1 launches {launches} != 3 x {cfg.layers} "
-                             f"layers x {passes} forward passes = {want}")
-    if combines != cfg.layers * passes:
-        raise AssertionError(f"goma_combine launches {combines} != "
-                             f"{cfg.layers} layers x {passes} passes")
+        raise AssertionError(f"non-finite logits in {arch} at full width")
+    want = expected_launches(cfg, passes)
+    if counts != want:
+        raise AssertionError(f"{arch} launches {counts} != {want} "
+                             f"({passes} forward passes)")
+    by_shape = {name: sum(n for k, n in seen.items() if k[0] == name)
+                for name in counts}
+    if by_shape != counts:
+        raise AssertionError(f"{arch}: calls by shape {by_shape} != "
+                             f"launches {counts}")
+    unchecked = sorted(k for k in seen if k not in checked)
+    if unchecked:
+        raise AssertionError(f"{arch} launched kernels at shapes that "
+                             f"phase 3 did not hold against their plain "
+                             f"versions: {unchecked}")
     # a second run, timed, once every plan is cached
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -292,23 +606,31 @@ def serve_full(smi: str, out: pathlib.Path | None) -> dict:
         raise AssertionError("a second greedy run gave other tokens")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"  tokens: {tokens.tolist()}")
-    print(f"  forward passes {passes}, B1 launches {launches} "
-          f"(= 3 x {cfg.layers} x {passes}), goma_combine launches "
-          f"{combines}")
+    print(f"  forward passes {passes}, launches {counts}")
+    print(f"  launches by shape (each held in phase 3): {seen}")
     print(f"  generate: {B * new / dt} tokens/s "
           f"({dt} s for {B}x{new} tokens), peak memory {peak} GiB")
     if out is not None:
-        profile_generate(eng, prompts, smi, out)
-    return {"goma_matmul": launches, "goma_combine": combines,
-            "serve": {"tokens_per_s": B * new / dt, "seconds": dt,
-                      "forward_passes": passes,
-                      "peak_memory_gib": peak}}
+        profile_generate(eng, prompts, smi, out, profile_name)
+    serve = {"tokens_per_s": B * new / dt, "seconds": dt,
+             "forward_passes": passes, "peak_memory_gib": peak}
+    if paths is not None:
+        serve["prefill_vs_plain_path"] = paths
+    shapes = {name: [{"shape": list(k[1]), "dtype": k[2], "launches": n}
+                     for k, n in sorted(seen.items()) if k[0] == name]
+              for name in counts}
+    return {"launches": counts, "shapes": shapes, "serve": serve}
 
 
-def profile_generate(eng, prompts, smi: str, out: pathlib.Path) -> None:
+# device-kernel name fragments of the port's hand-written kernels
+PORT_KERNELS = {"goma": "goma_", "wkv6": "wkv6_kernel", "ssd": "ssd_kernel"}
+
+
+def profile_generate(eng, prompts, smi: str, out: pathlib.Path,
+                     name: str) -> None:
     """One more generate under torch.profiler: device time by kernel,
-    the device's busy and idle shares of the wall time, and the GOMA
-    kernels' share, to out/profile_serve.{json,txt}."""
+    the device's busy and idle shares of the wall time, and the port
+    kernels' shares, to out/<name>.{json,txt}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -327,20 +649,24 @@ def profile_generate(eng, prompts, smi: str, out: pathlib.Path) -> None:
                    and e.self_device_time_total > 0),
                   key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
-    goma = sum(r["device_ms"] for r in rows if "goma_" in r["name"])
+    port = {k: sum(r["device_ms"] for r in rows if frag in r["name"])
+            for k, frag in PORT_KERNELS.items()}
     if busy <= 0:
         raise AssertionError("the profiler saw no device time")
     summary = {"device": smi, "wall_ms": wall_ms, "device_busy_ms": busy,
+               "device_kernel_launches": sum(r["calls"] for r in rows),
                "device_busy_share": busy / wall_ms,
                "device_idle_share": 1 - busy / wall_ms,
-               "goma_kernels_ms": goma, "goma_share_of_busy": goma / busy,
+               "port_kernels_ms": port,
+               "port_kernels_share_of_busy": {k: v / busy
+                                              for k, v in port.items()},
                "top": rows[:20]}
-    (out / "profile_serve.json").write_text(json.dumps(summary, indent=1))
+    (out / f"{name}.json").write_text(json.dumps(summary, indent=1))
     table = prof.key_averages().table(sort_by="self_cuda_time_total",
                                       row_limit=25)
-    (out / "profile_serve.txt").write_text(f"{smi}\n{table}\n")
+    (out / f"{name}.txt").write_text(f"{smi}\n{table}\n")
     print(f"  profiled generate: wall {wall_ms} ms, device busy {busy} ms "
-          f"(share {busy / wall_ms}), GOMA kernels {goma} ms")
+          f"(share {busy / wall_ms}), port kernels {port} ms")
     for r in rows[:8]:
         print(f"    {r['device_ms']:10.3f} ms {r['calls']:6d}  "
               f"{r['name'][:80]}")
@@ -387,10 +713,13 @@ def main() -> None:
         for dtype in (torch.float32, torch.bfloat16):
             for shape in ODD_SHAPES:
                 b1_rows.append(check_b1(shape, dtype, gen, timed=False))
-        for M in (4, 64):
-            for N, K in ((14336, 4096), (4096, 14336)):
-                b1_rows.append(check_b1((M, N, K), torch.bfloat16, gen,
-                                        timed=True))
+        # every served MLP's gate/up and down products, at decode and in
+        # the prefill, under the plans the model takes
+        for rows, ff, d in SERVED_MLPS.values():
+            for M in rows:
+                for N, K in ((ff, d), (d, ff)):
+                    b1_rows.append(check_b1((M, N, K), torch.bfloat16, gen,
+                                            timed=True))
         # hand-made plans: nk == 1, nk > 1, and nm > 1 with nk > 1 (the
         # reference's grid-path plans, with FF = 128 so that the fp32
         # strips of bm = 128 fit a CTA)
@@ -406,52 +735,109 @@ def main() -> None:
         for M in (4, 64):   # the smoke chain at decode and prefill
             b2_rows.append(check_b2(M, 128, 64, torch.float32, gen,
                                     timed=True))
-        # the composition's combine: an odd fp32 shape, and the full-width
-        # decode and prefill MLP strips
+        # the composition's combine: an odd fp32 shape, and every served
+        # MLP's strip at decode and in the prefill
         combine_rows.append(check_combine((129, 257), torch.float32, gen,
                                           timed=False))
-        for M in (4, 64):
-            combine_rows.append(check_combine((M, 14336), torch.bfloat16,
-                                              gen, timed=True))
+        for rows, ff, _ in SERVED_MLPS.values():
+            for M in rows:
+                combine_rows.append(check_combine((M, ff), torch.bfloat16,
+                                                  gen, timed=True))
         for r in b1_rows + b2_rows + combine_rows:
             print("  " + json.dumps(r))
+        # the scans: an odd small shape (a padded register tile, a chunk
+        # of 8), and the full-width prefill shapes at chunk 128
+        wkv_rows = [check_wkv6((2, 40, 3, 64), 8, dtype, gen)
+                    for dtype in (torch.float32, torch.bfloat16)]
+        wkv_rows.append(check_wkv6((4, 256, 64, 64), 128, torch.float32,
+                                   gen))
+        ssd_rows = [check_ssd((2, 40, 3, 64, 16), 8, torch.float32, gen),
+                    check_ssd((4, 256, 80, 64, 64), 128, torch.float32, gen)]
+    checked = ({checked_key("goma_matmul", r) for r in b1_rows}
+               | {checked_key("goma_combine", r) for r in combine_rows}
+               | {checked_key("wkv6_scan", r) for r in wkv_rows}
+               | {checked_key("ssd_scan", r) for r in ssd_rows})
 
+    # every path runs with the launch counts set to 0 just before it; at
+    # full width each records the shapes it launched every kernel at
+    runs, shapes = {}, {}
     with phase("4 serve llama3-8b smoke on the card (B2)"):
-        smoke = serve_smoke()
+        runs["serve llama3-8b smoke"] = serve_smoke(
+            "llama3-8b", FULL["prompt_len"], ("goma_fused_matmul",),
+            fused_mlp=True)
     with phase("5 serve llama3-8b at full width (B1)"):
-        full = serve_full(smi, out)
+        full = serve_full(FULL["arch"], FULL["prompt_len"], smi, out,
+                          "profile_serve", checked, check_paths=False,
+                          fused_mlp=True)
+        runs["serve llama3-8b full width"] = full["launches"]
+        shapes["serve llama3-8b full width"] = full["shapes"]
+    free_device()
+    with phase("6 serve rwkv6-7b smoke on the card (B3)"):
+        runs["serve rwkv6-7b smoke"] = serve_smoke(
+            "rwkv6-7b", RECURRENT["smoke_prompt_len"], ("wkv6_scan",),
+            use_pallas_scan=True)
+    with phase("7 serve zamba2-2.7b smoke on the card (B4, B2)"):
+        runs["serve zamba2-2.7b smoke"] = serve_smoke(
+            "zamba2-2.7b", RECURRENT["smoke_prompt_len"],
+            ("ssd_scan", "goma_fused_matmul"), use_pallas_scan=True,
+            fused_mlp=True)
+    with phase("8 serve rwkv6-7b at full width (B3)"):
+        rwkv = serve_full("rwkv6-7b", RECURRENT["prompt_len"], smi, out,
+                          "profile_serve_rwkv", checked, check_paths=True,
+                          use_pallas_scan=True)
+        runs["serve rwkv6-7b full width"] = rwkv["launches"]
+        shapes["serve rwkv6-7b full width"] = rwkv["shapes"]
+    free_device()
+    with phase("9 serve zamba2-2.7b at full width (B4, B1)"):
+        zamba = serve_full("zamba2-2.7b", RECURRENT["prompt_len"], smi, out,
+                           "profile_serve_zamba2", checked, check_paths=True,
+                           use_pallas_scan=True, fused_mlp=True)
+        runs["serve zamba2-2.7b full width"] = zamba["launches"]
+        shapes["serve zamba2-2.7b full width"] = zamba["shapes"]
+    free_device()
 
     b1 = next(r for r in b1_rows if r["shape"] == [4, 14336, 4096])
     b2 = next(r for r in b2_rows if r["shape"] == [4, 128, 64])
     comb = next(r for r in combine_rows if r["shape"] == [4, 14336])
     kernels = []
-    for name, row, launches, src, replaces, path in (
-            ("goma_matmul (B1)", b1, full["goma_matmul"],
-             "src/repro_torch/kernels/csrc/goma_gemm.cu",
-             "src/repro/kernels/goma_gemm.py:97",
-             "serve llama3-8b full width"),
-            ("goma_fused_matmul (B2)", b2, smoke["goma_fused_matmul"],
-             "src/repro_torch/kernels/csrc/goma_fused.cu",
-             "src/repro/kernels/goma_fused.py:131",
-             "serve llama3-8b smoke"),
-            ("goma_combine (B2's combine, between B1 links)", comb,
-             full["goma_combine"],
-             "src/repro_torch/kernels/csrc/goma_fused.cu",
-             "src/repro/kernels/goma_fused.py:66",
-             "serve llama3-8b full width")):
+    for name, fn, row, path, src, replaces in (
+            ("goma_matmul (B1)", "goma_matmul", b1,
+             "serve llama3-8b full width", "goma_gemm.cu",
+             "src/repro/kernels/goma_gemm.py:97"),
+            ("goma_fused_matmul (B2)", "goma_fused_matmul", b2,
+             "serve llama3-8b smoke", "goma_fused.cu",
+             "src/repro/kernels/goma_fused.py:131"),
+            ("goma_combine (B2's combine, between B1 links)",
+             "goma_combine", comb, "serve llama3-8b full width",
+             "goma_fused.cu", "src/repro/kernels/goma_fused.py:66"),
+            ("wkv6_scan (B3)", "wkv6_scan", wkv_rows[-1],
+             "serve rwkv6-7b full width", "wkv6.cu",
+             "src/repro/kernels/wkv6.py:78"),
+            ("ssd_scan (B4)", "ssd_scan", ssd_rows[-1],
+             "serve zamba2-2.7b full width", "mamba2_ssd.cu",
+             "src/repro/kernels/mamba2_ssd.py:76")):
         kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches,
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": runs[path][fn],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"], "dtype": row["dtype"], "path": path})
+            "shape": row["shape"], "dtype": row["dtype"], "path": path,
+            "launches_by_path": {k: v[fn] for k, v in runs.items()
+                                 if v[fn]},
+            "shapes_by_path": {k: v[fn] for k, v in shapes.items()
+                               if v[fn]}})
     if out is not None:
         (out / "chip_smoke.json").write_text(json.dumps(
             {"device": smi, "b1": b1_rows, "b2": b2_rows,
-             "combine": combine_rows,
-             "serve_full": full["serve"], "kernels": kernels,
+             "combine": combine_rows, "wkv6": wkv_rows, "ssd": ssd_rows,
+             "serve_full": full["serve"], "serve_rwkv": rwkv["serve"],
+             "serve_zamba2": zamba["serve"], "launches": runs,
+             "shapes": shapes,
+             "kernels": kernels,
              "seconds": time.perf_counter() - t_start}, indent=1))
+    print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

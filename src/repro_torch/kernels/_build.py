@@ -24,7 +24,7 @@ import types
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("goma_gemm.cu", "goma_fused.cu")
+SOURCES = ("goma_gemm.cu", "goma_fused.cu", "wkv6.cu", "mamba2_ssd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
@@ -40,6 +40,11 @@ SIGNATURES = {
     "goma_combine_launch": [_P, _P, _P, _L, _I, _I, _P],
     "goma_stage_bytes": [],
     "goma_fused_stage_bytes": [],
+    "wkv6_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "wkv6_smem_bytes": [_I, _I],
+    "ssd_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                   _P],
+    "ssd_smem_bytes": [_I, _I, _I],
 }
 
 

@@ -2,6 +2,10 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --fused-mlp [--smoke] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+        --scan-kernel [--smoke] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+        --scan-kernel --fused-mlp [--smoke] [--device cpu]
 
 Runs on the CUDA card unless ``--device cpu`` is given; without a card
 and without that flag it exits with an error instead of falling back.
@@ -35,6 +39,10 @@ def main(argv: list[str] | None = None) -> None:
                     help="route gated-MLP blocks through the GOMA-chain-"
                          "planned fused kernel (the B1 composition where "
                          "the chain does not fuse)")
+    ap.add_argument("--scan-kernel", action="store_true",
+                    help="run the prefill's RWKV-6 / Mamba2 chunked scans "
+                         "through their kernels (B3, B4): the config's "
+                         "use_pallas_scan knob")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda)")
     args = ap.parse_args(argv)
@@ -47,6 +55,8 @@ def main(argv: list[str] | None = None) -> None:
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.fused_mlp:
         cfg = dataclasses.replace(cfg, fused_mlp=True)
+    if args.scan_kernel:
+        cfg = dataclasses.replace(cfg, use_pallas_scan=True)
     model = build_model(cfg)
     params = model.init_params(
         torch.Generator(device=device).manual_seed(0), device)

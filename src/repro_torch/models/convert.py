@@ -6,9 +6,14 @@
 tree with the same layout: the layer stack on axis 0, projection weights
 as ``(d_in, d_out)``, so B1 reads them as ``(K, N)`` row-major.
 
-The reference keeps the dense projection weights in the parameter dtype
-and casts them to the compute dtype at every use (``layers.dense``); the
-port casts them once here.  The values it multiplies are the same.
+The reference keeps the projection weights in the parameter dtype and
+casts them to the compute dtype at every use (``layers.dense``); the
+port casts them once here (``model.PROJECTIONS`` lists them by family:
+attention and MLP weights, RWKV time and channel weights, Mamba2 in and
+out projections, the hybrid's shared block).  The values it multiplies
+are the same.  Everything else keeps the reference's dtype: norms,
+mixes, the RWKV bonus and decay bias, and Mamba2's A_log, D, dt_bias
+and conv taps.
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from .layers import dtype_of
-from .model import DENSE_WEIGHTS
+from .model import PROJECTIONS
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -38,7 +43,9 @@ def params_from_jax(numpy_tree: dict, cfg: ArchConfig,
     """The port's parameters from the reference's (numpy) pytree."""
     params = _convert(numpy_tree, device)
     cdt = dtype_of(cfg.compute_dtype)
-    for block, name in DENSE_WEIGHTS:
-        w = params["layers"][block][name]
+    for path in PROJECTIONS[cfg.family]:
+        w = params
+        for key in path:
+            w = w[key]
         w["w"] = w["w"].to(cdt)
     return params

@@ -6,7 +6,8 @@ Parameters are nested dicts of tensors with the reference's layout
 moves a JAX pytree over as it is.  Attention is plain PyTorch: the
 reference leaves it to XLA, so the port has no hand kernel for it.  The
 gated MLP runs through the GOMA-planned kernels when the config asks for
-the fused MLP.
+the fused MLP.  ``pad_seq`` pads a sequence to a scan's chunk for the
+recurrent blocks (``rwkv.py``, ``ssm.py``).
 
 Not ported yet: sliding windows, softcaps, per-row slot-indexed cache
 writes and cross-attention.
@@ -32,6 +33,14 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
     # the reference casts the weight to the activation dtype at every use;
     # the port casts once at load (convert.py), so this is a no-op there
     return x @ p["w"].to(x.dtype)
+
+
+def pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """Zero-pad axis 1 (the sequence) of a (B, S, ...) tensor by ``pad``;
+    the result is contiguous, as the scan kernels take it."""
+    if not pad:
+        return t.contiguous()
+    return torch.cat([t, t.new_zeros((t.shape[0], pad) + t.shape[2:])], 1)
 
 
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:

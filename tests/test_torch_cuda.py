@@ -13,6 +13,8 @@ from repro_torch.core.hopper_mapping import FusedTilePlan
 from repro_torch.kernels import ops
 from repro_torch.kernels.goma_fused import goma_combine
 from repro_torch.kernels.goma_gemm import goma_matmul
+from repro_torch.kernels.mamba2_ssd import ssd_scan, ssd_scan_plain
+from repro_torch.kernels.wkv6 import wkv6_scan, wkv6_scan_plain
 
 MATRIX_SHAPES = [(128, 128, 128), (300, 200, 100), (129, 257, 65),
                  (100, 50, 1), (256, 384, 512)]
@@ -103,3 +105,89 @@ def test_cuda_unfused_fallback_combines_on_the_card(cuda_device, dtype):
     want = ops.fused_mlp(*ts)
     tol = MLP_TOL[dtype]
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+# (B, S, H, P, chunk): an odd small shape, a shape that needs no padding
+# of the chunk to the register tile, and one chunk of 128
+WKV_SHAPES = [(2, 40, 3, 64, 8), (2, 128, 2, 64, 32), (1, 256, 2, 64, 128)]
+# (B, S, H, P, N, chunk)
+SSD_SHAPES = [(2, 40, 3, 64, 16, 8), (2, 128, 2, 16, 16, 32),
+              (1, 256, 2, 64, 64, 128)]
+# the reference's scan tolerances (tests/test_kernels.py), relative to the
+# plain version's largest magnitude: y 1e-4 (bf16 5e-2), state 2e-3 (B3)
+# and 1e-3 (B4)
+SCAN_Y_TOL = {"f32": 1e-4, "bf16": 5e-2}
+
+
+def _close_to_scale(got, want, tol):
+    want = _f32(want)
+    scale = max(1.0, float(np.abs(want).max()))
+    err = float(np.abs(_f32(got) - want).max())
+    assert err <= tol * scale, (err, tol, scale)
+
+
+def wkv_inputs(seed, B, S, H, P, dtype):
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, S, H, P)) * 0.5 for _ in range(3))
+    logw = -np.exp(rng.standard_normal((B, S, H, P)) - 2.0)
+    u = rng.standard_normal((H, P)) * 0.3
+    return ([torch.from_numpy(a.astype(np.float32)).to(DTYPES[dtype])
+             for a in (r, k, v, logw)]
+            + [torch.from_numpy(u.astype(np.float32))])
+
+
+def ssd_inputs(seed, B, S, H, P, N):
+    rng = np.random.default_rng(seed)
+    xh = rng.standard_normal((B, S, H, P)) * 0.5
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H))))
+    a_log = rng.standard_normal(H) * 0.2
+    Bm, Cm = (rng.standard_normal((B, S, N)) * 0.5 for _ in range(2))
+    return [torch.from_numpy(a.astype(np.float32))
+            for a in (xh, dt, a_log, Bm, Cm)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WKV_SHAPES,
+                         ids=["x".join(map(str, s)) for s in WKV_SHAPES])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_wkv6_matches_plain(cuda_device, shape, dtype):
+    *dims, chunk = shape
+    ts = wkv_inputs(10, *dims, dtype)
+    before = wkv6_scan.launches
+    y, st = wkv6_scan(*(t.to(cuda_device) for t in ts), chunk=chunk)
+    torch.cuda.synchronize()
+    assert wkv6_scan.launches == before + 1
+    assert y.dtype == ts[0].dtype and st.dtype == torch.float32
+    want_y, want_st = wkv6_scan_plain(*ts, chunk=chunk)
+    _close_to_scale(y, want_y, SCAN_Y_TOL[dtype])
+    _close_to_scale(st, want_st, 2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSD_SHAPES,
+                         ids=["x".join(map(str, s)) for s in SSD_SHAPES])
+def test_cuda_ssd_matches_plain(cuda_device, shape):
+    *dims, chunk = shape
+    ts = ssd_inputs(11, *dims)
+    before = ssd_scan.launches
+    y, st = ssd_scan(*(t.to(cuda_device) for t in ts), chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    want_y, want_st = ssd_scan_plain(*ts, chunk=chunk)
+    _close_to_scale(y, want_y, SCAN_Y_TOL["f32"])
+    _close_to_scale(st, want_st, 1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_scans_refuse_what_they_cannot_take(cuda_device):
+    """A CUDA tensor launches the kernel or raises; nothing falls back."""
+    r, k, v, logw, u = (t.to(cuda_device)
+                        for t in wkv_inputs(12, 1, 256, 1, 64, "f32"))
+    with pytest.raises(ValueError):
+        wkv6_scan(r, k, v, logw, u, chunk=256)      # exceeds shared memory
+    with pytest.raises(ValueError):
+        wkv6_scan(r, k, v, logw.cpu(), u, chunk=8)  # mixed devices
+    xh, dt, a_log, Bm, Cm = (t.to(cuda_device)
+                             for t in ssd_inputs(13, 1, 16, 1, 6, 16))
+    with pytest.raises(ValueError):
+        ssd_scan(xh, dt, a_log, Bm, Cm, chunk=8)    # P not a multiple of 4

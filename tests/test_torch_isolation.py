@@ -5,6 +5,8 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
 MODULES = sorted(
@@ -24,6 +26,9 @@ def _run(code: str, *args: str) -> subprocess.CompletedProcess:
 def test_modules_found():
     assert "repro_torch.kernels.ops" in MODULES
     assert "repro_torch.launch.serve" in MODULES
+    for m in ("kernels.wkv6", "kernels.mamba2_ssd", "models.rwkv",
+              "models.ssm"):
+        assert f"repro_torch.{m}" in MODULES
     assert len(MODULES) >= 30
 
 
@@ -53,6 +58,24 @@ def test_serve_without_a_card_exits_nonzero():
                "--smoke", "--fused-mlp", "--new-tokens", "2")
     assert res.returncode != 0
     assert "--device cpu" in res.stderr
+
+
+def test_recurrent_serve_without_a_card_exits_nonzero():
+    res = _run("", "-m", "repro_torch.launch.serve", "--arch", "rwkv6-7b",
+               "--smoke", "--scan-kernel", "--new-tokens", "2")
+    assert res.returncode != 0
+    assert "--device cpu" in res.stderr
+
+
+@pytest.mark.parametrize("arch,flags", [
+    ("rwkv6-7b", ["--scan-kernel"]),
+    ("zamba2-2.7b", ["--scan-kernel", "--fused-mlp"])])
+def test_recurrent_serve_on_cpu_when_asked(arch, flags):
+    res = _run("", "-m", "repro_torch.launch.serve", "--arch", arch,
+               "--smoke", *flags, "--batch", "2", "--prompt-len", "12",
+               "--new-tokens", "3", "--device", "cpu")
+    assert res.returncode == 0, res.stderr
+    assert f"{arch}-smoke on cpu" in res.stdout
 
 
 def test_serve_on_cpu_when_asked():
