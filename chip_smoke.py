@@ -3,8 +3,10 @@
     python3 chip_smoke.py [--out DIR]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version on the card, and serves
-three paths, checking each one's launch counts:
+checks that the bf16 GEMM kernels run on the tensor cores (HGMMA in
+their SASS), holds each kernel against its plain PyTorch version on the
+card and B1's bf16 bits against every decomposition of one problem, and
+serves three paths, checking each one's launch counts:
 
 - ``llama3-8b``: the smoke config through the fused kernel (B2), the
   full width through the GEMM kernel (B1) and ``goma_combine``;
@@ -35,7 +37,10 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import pathlib
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -112,6 +117,22 @@ def time_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one fn() by torch.profiler: the time of the device
+    kernels that ``reps`` calls ran, over ``reps``, after one warm-up.
+    Unlike time_ms it leaves out the host's launch overhead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+
+
 def bound_ms(nbytes: int, flops: int, dtype: torch.dtype) -> tuple[float,
                                                                     str]:
     """The least time the card could take: the larger of the bytes over
@@ -140,19 +161,61 @@ def rand(shape, dtype, gen, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
+# --------------------------------------------------------------- phase 2
+def hgmma_counts(lib_dir: pathlib.Path) -> dict | None:
+    """HGMMA (wgmma) instructions in each bf16 tensor-core kernel of the
+    built libraries, from ``cuobjdump -sass``; None where the toolkit has
+    no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    counts = {}
+    for lib, pattern in (("libgoma_gemm.so", r"goma_matmul_wgmmaILi(\d+)E"),
+                         ("libgoma_fused.so", r"goma_fused_wgmma()")):
+        sass = subprocess.run([tool, "-sass", str(lib_dir / lib)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        name = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                m = re.search(pattern, line)
+                name = None if m is None else (
+                    f"goma_matmul_wgmma<{m.group(1)}>" if m.group(1)
+                    else "goma_fused_wgmma")
+                if name:
+                    counts[name] = 0
+            elif name and "HGMMA" in line:
+                counts[name] += 1
+    return counts
+
+
 # --------------------------------------------------------------- phase 3
-def check_b1(shape, dtype, gen, *, timed: bool) -> dict:
-    """B1 against its plain version on padded operands under the H100
-    plan; with ``timed``, also kernel, plain and torch.matmul times."""
-    from repro_torch.core.hopper_mapping import plan_gemm_tiling
-    from repro_torch.kernels.goma_gemm import goma_matmul, goma_matmul_plain
-    M, N, K = shape
-    plan = plan_gemm_tiling(M, N, K, dtype_bytes=dtype.itemsize)
+def b1_operands(plan, dtype, gen):
+    """Padded B1 operands for a plan: A's rows from plan.M on and the
+    padding of both are zero, as every caller pads."""
+    M, N, K = plan.M, plan.N, plan.K
     pm, pn, pk = plan.padded
     a = torch.zeros((pm, pk), dtype=dtype, device="cuda")
     a[:M, :K] = rand((M, K), dtype, gen)
     b = torch.zeros((pk, pn), dtype=dtype, device="cuda")
     b[:K, :N] = rand((K, N), dtype, gen, K ** -0.5)
+    return a, b
+
+
+def check_b1(shape, dtype, gen, *, timed: bool) -> dict:
+    """B1 against its plain version on padded operands under the H100
+    plan, with its CTA decomposition; with ``timed``, also kernel, plain
+    and torch.matmul times (events, and device time by the profiler), the
+    kernel's device time at every slice width, and its shares."""
+    from repro_torch.core.hopper_mapping import plan_gemm_tiling
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.goma_gemm import (SLICE_WIDTHS, cta_slices,
+                                               cta_tiles, goma_matmul,
+                                               goma_matmul_plain)
+    M, N, K = shape
+    plan = plan_gemm_tiling(M, N, K, dtype_bytes=dtype.itemsize)
+    pm, pn, pk = plan.padded
+    a, b = b1_operands(plan, dtype, gen)
     got = goma_matmul(a, b, plan)
     want = goma_matmul_plain(a, b, plan)
     torch.cuda.synchronize()
@@ -160,16 +223,65 @@ def check_b1(shape, dtype, gen, *, timed: bool) -> dict:
            "block": list(plan.block), "grid_order": "".join(plan.grid_order),
            "dtype": dtype_name(dtype),
            "max_abs_err": close(got, want, TOL[dtype])}
+    if dtype == torch.bfloat16:
+        width = cta_slices(plan)
+        row.update(slice_n=width, ctas=len(cta_tiles(plan, width)),
+                   stages=_build.load().goma_matmul_stages(width))
+    else:   # fp32: one CTA per plan block
+        row.update(slice_n=None,
+                   ctas=(pm // plan.block[0]) * (pn // plan.block[1]),
+                   stages=None)
     if timed:
         # the work the product needs: the unpadded operands and flops
         nbytes = (M * K + K * N + M * N) * dtype.itemsize
         bound, by = bound_ms(nbytes, 2 * M * N * K, dtype)
         row.update(
             ms=time_ms(lambda: goma_matmul(a, b, plan)),
+            device_ms=device_ms(lambda: goma_matmul(a, b, plan)),
             plain_ms=time_ms(lambda: goma_matmul_plain(a, b, plan)),
             library_ms=time_ms(lambda: torch.matmul(a, b)),
+            library_device_ms=device_ms(lambda: torch.matmul(a, b)),
             bound_ms=bound, bound_by=by)
+        row.update(
+            bound_share=bound / row["ms"],
+            vs_library=row["ms"] / row["library_ms"],
+            device_bound_share=bound / row["device_ms"],
+            device_vs_library=row["device_ms"] / row["library_device_ms"],
+            device_ms_by_slice={
+                w: device_ms(lambda: goma_matmul(a, b, plan, slice_n=w))
+                for w in SLICE_WIDTHS if plan.block[1] % w == 0})
     return row
+
+
+def check_tiling_independence(gen) -> list[dict]:
+    """bf16 B1 gives the same bits under every decomposition of one padded
+    problem: a served decode shape at every slice width, and a 128 x 128
+    x 128 problem under plans with bk 32, 64 and 128 and different (bm,
+    bn), each at every slice width.  Raises on any difference."""
+    from repro_torch.core.hopper_mapping import TpuTilePlan, plan_gemm_tiling
+    from repro_torch.kernels.goma_gemm import SLICE_WIDTHS, goma_matmul
+    rows = []
+    hand = [TpuTilePlan(M=128, N=128, K=128, padded=(128, 128, 128),
+                        block=blk, grid_order=("m", "n", "k"), walk="z",
+                        objective=0.0, solve_time_s=0.0)
+            for blk in ((128, 128, 32), (64, 128, 64), (128, 64, 128))]
+    for plans in ([plan_gemm_tiling(4, 14336, 4096, dtype_bytes=2)],
+                  [plan_gemm_tiling(128, 128, 128, dtype_bytes=2)] + hand):
+        a, b = b1_operands(plans[0], torch.bfloat16, gen)
+        outs = [(p.block, w, goma_matmul(a, b, p, slice_n=w))
+                for p in plans for w in SLICE_WIDTHS
+                if p.block[1] % w == 0]
+        torch.cuda.synchronize()
+        first = outs[0][2]
+        differ = [(blk, w) for blk, w, o in outs if not torch.equal(o, first)]
+        if differ:
+            raise AssertionError(f"B1 bits depend on the decomposition: "
+                                 f"{differ} differ from {outs[0][:2]}")
+        rows.append({"shape": [plans[0].M, plans[0].N, plans[0].K],
+                     "decompositions": [[list(blk), w]
+                                        for blk, w, _ in outs],
+                     "bitwise_equal": True})
+    return rows
 
 
 def check_b2(M, FF, K, dtype, gen, *, plan=None, timed: bool) -> dict:
@@ -623,7 +735,8 @@ def serve_full(arch: str, prompt_len: int, smi: str,
 
 
 # device-kernel name fragments of the port's hand-written kernels
-PORT_KERNELS = {"goma": "goma_", "wkv6": "wkv6_kernel", "ssd": "ssd_kernel"}
+PORT_KERNELS = {"goma": "goma_", "b1": "goma_matmul", "wkv6": "wkv6_kernel",
+                "ssd": "ssd_kernel"}
 
 
 def profile_generate(eng, prompts, smi: str, out: pathlib.Path,
@@ -706,6 +819,13 @@ def main() -> None:
                 if "registers" in line or "spill" in line:
                     print(f"  {src}: {line.strip()}")
         _build.load()
+        # the bf16 kernels run on the tensor cores: their SASS has HGMMA
+        hgmma = hgmma_counts(report.path)
+        print(f"  HGMMA instructions per bf16 kernel (cuobjdump -sass): "
+              f"{hgmma if hgmma is not None else 'no cuobjdump'}")
+        if hgmma is not None and (len(hgmma) != 4
+                                  or not all(hgmma.values())):
+            raise AssertionError(f"a bf16 kernel without HGMMA: {hgmma}")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     b1_rows, b2_rows, combine_rows = [], [], []
@@ -743,7 +863,8 @@ def main() -> None:
             for M in rows:
                 combine_rows.append(check_combine((M, ff), torch.bfloat16,
                                                   gen, timed=True))
-        for r in b1_rows + b2_rows + combine_rows:
+        tiling = check_tiling_independence(gen)
+        for r in b1_rows + b2_rows + combine_rows + tiling:
             print("  " + json.dumps(r))
         # the scans: an odd small shape (a padded register tile, a chunk
         # of 8), and the full-width prefill shapes at chunk 128
@@ -816,7 +937,12 @@ def main() -> None:
             ("ssd_scan (B4)", "ssd_scan", ssd_rows[-1],
              "serve zamba2-2.7b full width", "mamba2_ssd.cu",
              "src/repro/kernels/mamba2_ssd.py:76")):
+        extra = ({k: row[k] for k in (
+            "slice_n", "ctas", "stages", "device_ms", "library_device_ms",
+            "bound_share", "vs_library", "device_bound_share",
+            "device_vs_library")} if fn == "goma_matmul" else {})
         kernels.append({
+            **extra,
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces, "launches": runs[path][fn],
@@ -830,7 +956,8 @@ def main() -> None:
                                if v[fn]}})
     if out is not None:
         (out / "chip_smoke.json").write_text(json.dumps(
-            {"device": smi, "b1": b1_rows, "b2": b2_rows,
+            {"device": smi, "hgmma": hgmma, "b1": b1_rows,
+             "b1_tiling_independence": tiling, "b2": b2_rows,
              "combine": combine_rows, "wkv6": wkv_rows, "ssd": ssd_rows,
              "serve_full": full["serve"], "serve_rwkv": rwkv["serve"],
              "serve_zamba2": zamba["serve"], "launches": runs,

@@ -1,14 +1,18 @@
 """GOMA -> Hopper adaptation: plan the port's GEMM kernels with the exact
 solver.  The counterpart of the reference's ``core/tpu_mapping.py``.
 
-The H100 instantiates GOMA's template per thread block (CTA): HBM≙DRAM,
-one CTA's shared memory≙SRAM, the CTA's register-resident compute tile
-(64x64 outputs, 256 threads x 4x4 fp32 accumulators in
-``kernels/csrc/goma_tile.cuh``)≙the PE array with a hard-wired spatial
-tile (``fixed_spatial = (64, 64, 1)``), registers≙regfile.  Bypass
-degenerates as on the TPU (operands always stage through shared memory),
-so what the solver chooses is the tile shape under the shared-memory
-capacity and the walking axis.
+The H100 instantiates GOMA's template per plan block: HBM≙DRAM, one
+CTA's shared memory≙SRAM, the 64-row register-resident compute tile
+(bf16: a warpgroup's wgmma m64 accumulators; fp32: 256 threads x 4x4
+accumulators, both in ``kernels/csrc/goma_tile.cuh``)≙the PE array with a
+hard-wired spatial tile (``fixed_spatial = (64, 64, 1)``),
+registers≙regfile.  Bypass degenerates as on the TPU (operands always
+stage through shared memory), so what the solver chooses is the tile
+shape under the shared-memory capacity and the walking axis.  The bf16
+GEMM kernel cuts each plan block into 64-row column slices, one CTA each
+(``kernels/goma_gemm.py:cta_slices``), so that wide blocks still cover
+the card; the slices keep the block's k walk and its place in the walk
+order.
 
 The spec and the padding unit are parameters of every planning function,
 so the same code reproduces the reference's TPU plans field for field
@@ -18,8 +22,8 @@ for Hopper by default (``spec=H100_LIKE, pad=HOPPER_PAD``).
 Realizability constraints, as in the reference:
 
   * z-walk re-solve: a non-z outer walk with a partial reduction would
-    need partial sums to round-trip HBM; the GEMM kernel keeps one CTA
-    per output block with the whole k loop inside, so such a plan is
+    need partial sums to round-trip HBM; the GEMM kernel keeps the whole
+    k loop of every output inside one CTA (no split-K), so such a plan is
     re-solved restricted to ``alpha01 = z``.
   * fused strips: the fused kernel holds its two (bm, FF) strips in fp32
     shared memory while the solver counts SRAM in I/O-dtype words; a
@@ -54,10 +58,15 @@ SMEM_BUDGET = 0.75
 # are multiples of it, so M and N pad to this unit.
 CTA_TILE = 64
 HOPPER_PAD = CTA_TILE
-# Bytes of the k-chunk staging buffers the kernels keep beside the fused
-# strips (goma::Stage in kernels/csrc/goma_tile.cuh): a transposed A chunk
-# of KC x (64 + 1) and a B chunk of KC x 64, fp32, KC = 32.
-STAGE_BYTES = 32 * (CTA_TILE + 1) * 4 + 32 * CTA_TILE * 4
+# Bytes the fused kernel keeps beside its two fp32 (bm, FF) strips
+# (goma_fused_stage_bytes in kernels/csrc/goma_fused.cu): the larger of
+# the fp32 path's k-chunk staging (goma::Stage: a transposed A chunk of
+# KC x (64 + 1) and a B chunk of KC x 64, fp32, KC = 32) and the bf16
+# path's TMA ring (3 stages of a 64 x 64 A tile and two 64 x 32 weight
+# slices, bf16, six 8-byte mbarriers, 1 KB of alignment slack).  The bf16
+# path's own strip, 64 x FF bf16, fits inside the fp32 strips.
+STAGE_BYTES = max(32 * (CTA_TILE + 1) * 4 + 32 * CTA_TILE * 4,
+                  3 * (64 * 64 * 2 + 2 * 64 * 32 * 2) + 6 * 8 + 1024)
 
 # The energy table (ERT) below is a model input, not a measurement of the
 # H100: Accelergy-style per-access estimates in the spirit of the

@@ -34,11 +34,12 @@ _I = ctypes.c_int
 _L = ctypes.c_long
 # C signatures of the launchers (all return the launch's cudaError_t)
 SIGNATURES = {
-    "goma_matmul_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "goma_matmul_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _P],
+    "goma_matmul_stages": [_I],
     "goma_fused_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _P],
+                          _I, _I, _P],
     "goma_combine_launch": [_P, _P, _P, _L, _I, _I, _P],
-    "goma_stage_bytes": [],
     "goma_fused_stage_bytes": [],
     "wkv6_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "wkv6_smem_bytes": [_I, _I],
@@ -122,11 +123,12 @@ def load() -> types.SimpleNamespace:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         setattr(ns, name, fn)
-    # the planner budgets the kernels' staging buffers: keep them in step
-    for fn in (ns.goma_stage_bytes, ns.goma_fused_stage_bytes):
-        if fn() != STAGE_BYTES:
-            raise RuntimeError(f"kernel staging is {fn()} bytes, the "
-                               f"planner assumes {STAGE_BYTES}")
+    # the planner budgets the fused kernel's staging beside its strips:
+    # keep the two in step
+    if ns.goma_fused_stage_bytes() != STAGE_BYTES:
+        raise RuntimeError(f"fused-kernel staging is "
+                           f"{ns.goma_fused_stage_bytes()} bytes, the "
+                           f"planner assumes {STAGE_BYTES}")
     return ns
 
 

@@ -4,24 +4,32 @@
 // Replaces the Pallas TPU kernel `goma_fused_matmul` (src/repro/kernels/
 // goma_fused.py: _fused_kernel, _fused_kernel_single_k).
 //
-// One CTA per m-strip of bm rows.  The two (bm, pff) fp32 strips live in
-// dynamic shared memory (the launcher raises the CTA's limit with
-// cudaFuncSetAttribute) and accumulate over the plan's bk-deep k stages in
-// increasing order, walked in 64x64 register tiles.  After the last stage
-// the strips are rounded to the I/O dtype, combined, and rounded again, in
-// place; then one full-depth dot per 64x64 output tile multiplies the strip
-// by Wd.  The intermediate never reaches device memory.
-//
 // Bit-identity with the composition of B1 kernels under the plan's
-// producer/consumer tilings: both run goma::tile_dot (one fmaf chain per
-// element in increasing k) and this file's goma::combine, whose entry point
-// for the composition is goma_combine_launch below.
+// producer/consumer tilings, with goma_combine_launch below between them:
+// both kernels take every product through the same dot routine of
+// goma_tile.cuh (fp32: goma::tile_dot; bf16: goma::wg::mma_stage) and the
+// same goma::combine, and round where the composition rounds.
 //
 // What bounds it: the strips must fit one CTA's 227 KB of shared memory,
-// which caps bm * pff (the planner records larger chains as unfused), and
-// one CTA per strip leaves most SMs idle at serving widths.  Within that,
-// the weight bytes.  Like B1 this first version runs fp32 FMA on the CUDA
-// cores: simple and right first.
+// which caps bm * pff (the planner records larger chains as unfused, so no
+// served full-width MLP reaches this kernel); within that, the weight
+// bytes.  It runs on the smoke configs only, where its time is launch
+// overhead.
+//
+// fp32 (the smoke configs), on the CUDA cores: one CTA per m-strip of bm
+// rows.  The two (bm, pff) fp32 strips live in dynamic shared memory and
+// accumulate over the plan's bk-deep k stages in increasing order, walked
+// in 64x64 register tiles.  After the last stage the strips are rounded to
+// the I/O dtype, combined, and rounded again, in place; then one
+// full-depth dot per 64x64 output tile multiplies the strip by Wd.
+//
+// bf16, on the tensor cores: one CTA per 64-row tile of the plan's strips,
+// with B1's ring (one producer warp, TMA) and B1's wgmma stage routine.
+// The consumer warpgroup computes the g and u tiles of each 32-column
+// slice over the full K, rounds both to bf16, combines, rounds again, and
+// stores the slice into a (64, pff) bf16 strip in shared memory, laid out
+// (128-byte swizzle) as a wgmma A operand; then it multiplies the strip by
+// Wd.  The intermediate never reaches device memory.
 #include "goma_tile.cuh"
 
 namespace {
@@ -93,6 +101,136 @@ goma_fused_kernel(const T* __restrict__ A, const T* __restrict__ Wg,
   }
 }
 
+namespace wg = goma::wg;
+
+// The bf16 ring: each stage holds an A tile and the 64 x 32 slices of Wg
+// and Wu (the producers), or one 64 x 32 slice of Wd in the Wg place (the
+// consumer).
+constexpr int FN = 32;                 // slice width of every bf16 product
+constexpr int FSTAGES = 3;
+using FB = wg::BTile<FN>;
+constexpr int FSTAGE_BYTES = wg::A_BYTES + 2 * FB::BYTES;
+// the staging beside the strip: ring, barriers and alignment slack
+constexpr int FRING_BYTES = FSTAGES * FSTAGE_BYTES +
+                            static_cast<int>(sizeof(wg::Ring<FSTAGES>)) +
+                            wg::ALIGN;
+
+__global__ void __launch_bounds__(wg::THREADS)
+goma_fused_wgmma(const __grid_constant__ CUtensorMap ta,
+                 const __grid_constant__ CUtensorMap tg,
+                 const __grid_constant__ CUtensorMap tu,
+                 const __grid_constant__ CUtensorMap td,
+                 __nv_bfloat16* __restrict__ Out, int pff, int pk, int pn2,
+                 int act) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring_tiles = wg::aligned_smem(smem_raw);
+  uint8_t* strip = ring_tiles + FSTAGES * FSTAGE_BYTES;  // pff / 64 chunks
+  auto& ring = *reinterpret_cast<wg::Ring<FSTAGES>*>(strip + pff * 128);
+  const int row0 = blockIdx.x * wg::ROWS;
+  const int nk = (pk + wg::KS - 1) / wg::KS;
+  const int nf = pff / wg::KS;
+
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+  if (threadIdx.x >= wg::CONSUMERS) {  // the producer warp
+    if (threadIdx.x == wg::CONSUMERS) {
+      int i = 0;
+      for (int n0 = 0; n0 < pff; n0 += FN) {
+        for (int k = 0; k < nk; ++k, ++i) {
+          uint64_t* bar = ring.acquire(i, FSTAGE_BYTES);
+          uint8_t* st = ring_tiles + (i % FSTAGES) * FSTAGE_BYTES;
+          wg::tma_load(st, &ta, bar, k * wg::KS, row0);
+          wg::tma_load(st + wg::A_BYTES, &tg, bar, n0, k * wg::KS);
+          wg::tma_load(st + wg::A_BYTES + FB::BYTES, &tu, bar, n0,
+                       k * wg::KS);
+        }
+      }
+      for (int n0 = 0; n0 < pn2; n0 += FN) {
+        for (int f = 0; f < nf; ++f, ++i) {
+          uint64_t* bar = ring.acquire(i, FB::BYTES);
+          uint8_t* st = ring_tiles + (i % FSTAGES) * FSTAGE_BYTES;
+          wg::tma_load(st + wg::A_BYTES, &td, bar, n0, f * wg::KS);
+        }
+      }
+    }
+    return;
+  }
+
+  int i = 0;
+  // producers: g and u of each 32-column slice over the full K
+  for (int n0 = 0; n0 < pff; n0 += FN) {
+    float ag[FN / 2], au[FN / 2];
+#pragma unroll
+    for (int e = 0; e < FN / 2; ++e) ag[e] = au[e] = 0.0f;
+    for (int k = 0; k < nk; ++k, ++i) {
+      const uint32_t st =
+          wg::smem_addr(ring_tiles + (i % FSTAGES) * FSTAGE_BYTES);
+      ring.wait_full(i);
+      wg::mma_stage<FN>(ag, st, st + wg::A_BYTES);
+      wg::mma_stage<FN>(au, st, st + wg::A_BYTES + FB::BYTES);
+      ring.release(i);
+    }
+    // round, combine, round; store into the strip as the A operand lays
+    // it out: chunk of 64 columns, row r at 128 bytes, 16-byte group g at
+    // g ^ (r % 8)
+    float hv[FN / 2];
+#pragma unroll
+    for (int e = 0; e < FN / 2; ++e) {
+      const float g = goma::round_to<__nv_bfloat16>(ag[e]);
+      const float u = goma::round_to<__nv_bfloat16>(au[e]);
+      hv[e] = goma::combine(g, u, act);
+    }
+    wg::for_pairs<FN>(hv, [&](int r, int c, float v0, float v1) {
+      const int col = n0 + c;
+      uint8_t* chunk = strip + (col / wg::KS) * wg::A_BYTES;
+      const int x = col % wg::KS;
+      *reinterpret_cast<__nv_bfloat162*>(
+          chunk + r * 128 + (((x / 8) ^ (r % 8)) * 16) + (x % 8) * 2) =
+          __floats2bfloat162_rn(v0, v1);
+    });
+  }
+  // the strip's generic-proxy stores become visible to the wgmma's reads
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(wg::CONSUMERS) : "memory");
+
+  // consumer: the strip times Wd, 32 columns at a time
+  for (int n0 = 0; n0 < pn2; n0 += FN) {
+    float acc[FN / 2];
+#pragma unroll
+    for (int e = 0; e < FN / 2; ++e) acc[e] = 0.0f;
+    for (int f = 0; f < nf; ++f, ++i) {
+      const uint32_t st =
+          wg::smem_addr(ring_tiles + (i % FSTAGES) * FSTAGE_BYTES);
+      ring.wait_full(i);
+      wg::mma_stage<FN>(acc, wg::smem_addr(strip + f * wg::A_BYTES),
+                        st + wg::A_BYTES);
+      ring.release(i);
+    }
+    wg::for_pairs<FN>(acc, [&](int r, int c, float v0, float v1) {
+      *reinterpret_cast<__nv_bfloat162*>(
+          Out + (long)(row0 + r) * pn2 + n0 + c) =
+          __floats2bfloat162_rn(v0, v1);
+    });
+  }
+}
+
+int launch_fused_wgmma(const void* A, const void* Wg, const void* Wu,
+                       const void* Wd, void* Out, int pm, int pff, int pk,
+                       int pn2, int m_valid, int act, cudaStream_t s) {
+  CUtensorMap ta, tg, tu, td;
+  if (!wg::make_map(&ta, A, m_valid, pk, pk, wg::ROWS, wg::KS) ||
+      !wg::make_map(&tg, Wg, pk, pff, pff, wg::KS, FN) ||
+      !wg::make_map(&tu, Wu, pk, pff, pff, wg::KS, FN) ||
+      !wg::make_map(&td, Wd, pff, pn2, pn2, wg::KS, FN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = FRING_BYTES + pff * 128;
+  cudaError_t err = wg::allow_smem(goma_fused_wgmma, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  goma_fused_wgmma<<<pm / wg::ROWS, wg::THREADS, smem, s>>>(
+      ta, tg, tu, td, static_cast<__nv_bfloat16*>(Out), pff, pk, pn2, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 __global__ void goma_combine_kernel(const T* __restrict__ G,
                                     const T* __restrict__ U,
@@ -126,17 +264,19 @@ int launch_fused(const void* A, const void* Wg, const void* Wu,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (all operands alike).  act: the
-// goma::Activation code.  Return the cudaError_t of the launch.
+// goma::Activation code.  bf16 only: m_valid = the rows of A that are read
+// (the plan's M; the rest read as zeros).  Return the cudaError_t of the
+// launch.
 int goma_fused_launch(const void* A, const void* Wg, const void* Wu,
                       const void* Wd, void* Out, int pm, int pff, int pk,
-                      int pn2, int bm, int bk, int act, int dtype,
-                      void* stream) {
+                      int pn2, int bm, int bk, int m_valid, int act,
+                      int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_fused<float>(A, Wg, Wu, Wd, Out, pm, pff, pk, pn2, bm, bk,
                                act, s);
-  return launch_fused<__nv_bfloat16>(A, Wg, Wu, Wd, Out, pm, pff, pk, pn2,
-                                     bm, bk, act, s);
+  return launch_fused_wgmma(A, Wg, Wu, Wd, Out, pm, pff, pk, pn2, m_valid,
+                            act, s);
 }
 
 // The combine of the B1 composition: out = round(act(g, u)) elementwise on
@@ -161,8 +301,13 @@ int goma_combine_launch(const void* G, const void* U, void* Out, long n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Shared memory either path needs beside the two fp32 (bm, pff) strips of
+// the fp32 path: the larger of the fp32 staging buffers and the bf16 ring
+// (the bf16 path's own strip, 64 x pff bf16, is smaller than the fp32
+// strips it replaces).  The planner's STAGE_BYTES must equal it.
 int goma_fused_stage_bytes() {
-  return static_cast<int>(sizeof(goma::Stage));
+  const int fp32 = static_cast<int>(sizeof(goma::Stage));
+  return fp32 > FRING_BYTES ? fp32 : FRING_BYTES;
 }
 
 }  // extern "C"

@@ -3,24 +3,27 @@ PyTorch version.
 
 Replaces the Pallas TPU kernel ``goma_fused_matmul`` of the reference
 (``src/repro/kernels/goma_fused.py``).  The kernel is CUDA C++ for sm_90a
-in ``csrc/goma_fused.cu``: one CTA per m-strip of bm rows holds the two
-``(bm, FF)`` fp32 strips in dynamic shared memory, accumulates them over
-the plan's bk-deep k stages, rounds them to the I/O dtype, combines,
-rounds again, and multiplies the strip by Wd.  The intermediate never
-reaches device memory.
+in ``csrc/goma_fused.cu``.  In fp32 one CTA per m-strip of bm rows holds
+the two ``(bm, FF)`` fp32 strips in dynamic shared memory, accumulates
+them over the plan's bk-deep k stages on the CUDA cores, rounds them to
+the I/O dtype, combines, rounds again, and multiplies the strip by Wd.
+In bf16 one CTA per 64-row tile runs B1's TMA ring and wgmma stage
+routine: the g and u tiles over the full K, rounded, combined and
+rounded into a (64, FF) bf16 strip in shared memory, which then
+multiplies Wd on the tensor cores.  The intermediate never reaches
+device memory.
 
 What bounds it on the H100: the strips must fit one CTA's 227 KB of
 shared memory, which caps ``bm * FF`` (the planner records larger chains
-as unfused), and one CTA per strip leaves most SMs idle at serving
-widths; within that, the weight bytes.  This first version is simple and
-right rather than fast: fp32 FMA on the CUDA cores (PERF.md has its
-times beside its bound).
+as unfused, so no served full-width MLP reaches it); within that, the
+weight bytes.  It runs on the smoke configs, where its time is launch
+overhead (PERF.md has its times beside its bound).
 
 Bit-identity contract, as in the reference: the kernel equals the
 composition of B1 kernels under ``plan.producer_plan()`` /
 ``plan.consumer_plan()`` with ``goma_combine`` between them, bit for bit.
-On the card both run the same dot loop and the same combine device
-function; on the CPU both run the same plain arithmetic.
+On the card both run the same dot routine per dtype and the same combine
+device function; on the CPU both run the same plain arithmetic.
 
 ``goma_fused_matmul`` and ``goma_combine`` launch their kernels for CUDA
 tensors and count the launches; for CPU tensors they run the plain
@@ -33,7 +36,7 @@ import torch
 from ..core.hopper_mapping import (CTA_TILE, SMEM_BYTES, FusedTilePlan,
                                    fused_smem_bytes)
 from . import _build
-from .goma_gemm import DTYPE_CODES, check_cuda_operands
+from .goma_gemm import DTYPE_CODES, check_cuda_operands, pad_k
 
 
 def _gelu_tanh(g: torch.Tensor) -> torch.Tensor:
@@ -114,7 +117,8 @@ def goma_fused_matmul(a: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     """out = act(A@Wg, A@Wu) @ Wd on padded shapes.
 
     A: (pm, pk); Wg/Wu: (pk, pff); Wd: (pff, pn2).  The output has A's
-    dtype."""
+    dtype.  A's rows from the plan's M on are padding and must be zero
+    (the bf16 kernel does not read them)."""
     pm, pff, pk, pn2 = plan.padded
     if a.shape != (pm, pk) or wg.shape != (pk, pff) or \
             wu.shape != (pk, pff) or wd.shape != (pff, pn2):
@@ -139,9 +143,11 @@ def goma_fused_matmul(a: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
         raise ValueError(f"fused strips need {smem} bytes of shared "
                          f"memory, a CTA has {SMEM_BYTES}")
     out = torch.empty((pm, pn2), dtype=a.dtype, device=a.device)
+    if a.dtype == torch.bfloat16:
+        a, wg, wu = pad_k(a, wg, wu)
     err = _build.load().goma_fused_launch(
         a.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
-        out.data_ptr(), pm, pff, pk, pn2, bm, bk,
+        out.data_ptr(), pm, pff, a.shape[1], pn2, bm, bk, plan.M,
         ACTIVATION_CODES[activation], DTYPE_CODES[a.dtype],
         torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(err, "goma_fused_matmul")

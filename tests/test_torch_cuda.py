@@ -9,10 +9,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.hopper_mapping import FusedTilePlan
+from repro_torch.core.hopper_mapping import (FusedTilePlan, TpuTilePlan,
+                                             plan_gemm_tiling)
 from repro_torch.kernels import ops
 from repro_torch.kernels.goma_fused import goma_combine
-from repro_torch.kernels.goma_gemm import goma_matmul
+from repro_torch.kernels.goma_gemm import (SLICE_WIDTHS, goma_matmul,
+                                           goma_matmul_plain)
 from repro_torch.kernels.mamba2_ssd import ssd_scan, ssd_scan_plain
 from repro_torch.kernels.wkv6 import wkv6_scan, wkv6_scan_plain
 
@@ -105,6 +107,81 @@ def test_cuda_unfused_fallback_combines_on_the_card(cuda_device, dtype):
     want = ops.fused_mlp(*ts)
     tol = MLP_TOL[dtype]
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+# the bf16 MLP products the full-width paths serve (llama3-8b and
+# zamba2-2.7b, gate/up and down, at decode and in the prefill)
+SERVED_GEMMS = [(4, 14336, 4096), (4, 4096, 14336), (64, 14336, 4096),
+                (64, 4096, 14336), (4, 10240, 2560), (4, 2560, 10240),
+                (800, 10240, 2560), (800, 2560, 10240)]
+
+
+def _padded_operands(plan, seed, dtype=torch.bfloat16):
+    """Padded operands on the card, made there from a seed (the served
+    weights are too large to draw with numpy quickly); A's padding rows
+    and both operands' k padding are zero, as every caller pads."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    M, N, K = plan.M, plan.N, plan.K
+    pm, pn, pk = plan.padded
+    a = torch.zeros((pm, pk), dtype=dtype, device="cuda")
+    a[:M, :K] = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+    b = torch.zeros((pk, pn), dtype=dtype, device="cuda")
+    b[:K, :N] = (torch.randn((K, N), generator=gen, device="cuda")
+                 * K ** -0.5).to(dtype)
+    return a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SERVED_GEMMS,
+                         ids=[f"{m}x{n}x{k}" for m, n, k in SERVED_GEMMS])
+def test_cuda_b1_bf16_matches_plain_at_served_shapes(cuda_device, shape):
+    plan = plan_gemm_tiling(*shape, dtype_bytes=2)
+    a, b = _padded_operands(plan, 16)
+    before = goma_matmul.launches
+    got = goma_matmul(a, b, plan)
+    torch.cuda.synchronize()
+    assert goma_matmul.launches == before + 1
+    tol = GEMM_TOL["bf16"]
+    np.testing.assert_allclose(_f32(got), _f32(goma_matmul_plain(a, b, plan)),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_b1_bits_do_not_depend_on_the_decomposition(cuda_device):
+    """bf16 B1 at every slice width of a served decode plan, and of a 128
+    x 128 x 128 problem under plans with bk 32, 64 and 128 and different
+    (bm, bn): bitwise equal outputs."""
+    hand = [TpuTilePlan(M=128, N=128, K=128, padded=(128, 128, 128),
+                        block=blk, grid_order=("m", "n", "k"), walk="z",
+                        objective=0.0, solve_time_s=0.0)
+            for blk in ((128, 128, 32), (64, 128, 64), (128, 64, 128))]
+    for plans in ([plan_gemm_tiling(4, 14336, 4096, dtype_bytes=2)],
+                  [plan_gemm_tiling(128, 128, 128, dtype_bytes=2)] + hand):
+        a, b = _padded_operands(plans[0], 17)
+        outs = [goma_matmul(a, b, p, slice_n=w) for p in plans
+                for w in SLICE_WIDTHS if p.block[1] % w == 0]
+        torch.cuda.synchronize()
+        assert len(outs) >= 3
+        assert all(torch.equal(o, outs[0]) for o in outs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(100, 50, 1), (64, 64, 40),
+                                   (129, 257, 65)],
+                         ids=["pk1", "pk40", "pk65-128"])
+def test_cuda_b1_bf16_k_tail(cuda_device, shape):
+    """A k extent that is not a multiple of the 64-deep ring stage: padded
+    to a multiple of 8 by the wrapper (pk = 1), zero-filled past pk by the
+    TMA (pk = 1 and 40), or already zero in memory (65 pads to 128); at
+    every slice width."""
+    plan = plan_gemm_tiling(*shape, dtype_bytes=2)
+    a, b = _padded_operands(plan, 18)
+    want = goma_matmul_plain(a, b, plan)
+    tol = GEMM_TOL["bf16"]
+    for w in (w for w in SLICE_WIDTHS if plan.block[1] % w == 0):
+        got = goma_matmul(a, b, plan, slice_n=w)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
 
 
 # (B, S, H, P, chunk): an odd small shape, a shape that needs no padding
