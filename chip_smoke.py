@@ -3,10 +3,11 @@
     python3 chip_smoke.py [--out DIR]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
-checks that the bf16 GEMM kernels run on the tensor cores (HGMMA in
-their SASS), holds each kernel against its plain PyTorch version on the
-card and B1's bf16 bits against every decomposition of one problem, and
-serves three paths, checking each one's launch counts:
+checks that the bf16 GEMM kernels and the scans run on the tensor cores
+(HGMMA, or TF32 HMMA, in their SASS), holds each kernel against its plain
+PyTorch version on the card and B1's bf16 bits against every
+decomposition of one problem, and serves three paths, checking each
+one's launch counts:
 
 - ``llama3-8b``: the smoke config through the fused kernel (B2), the
   full width through the GEMM kernel (B1) and ``goma_combine``;
@@ -55,6 +56,7 @@ import torch  # noqa: E402
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TF32_FLOPS = 495e12   # the tensor cores' TF32 rate, which 3xTF32 runs at
 # kernel vs its plain version: the reference's kernel tolerances
 # (tests/test_kernels.py), as rtol = atol; fp32 sums differ only in order,
 # bf16 outputs may differ by one rounding of the output
@@ -78,6 +80,10 @@ SERVED_MLPS = {
 # (tests/test_kernels.py), relative to the plain version's largest
 # magnitude: y 1e-4 (bf16 y 5e-2), state 2e-3 (B3) and 1e-3 (B4)
 SCAN_Y_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# the recurrent paths' full-width prefill scans (batch x prompt 200 padded
+# to two chunks of 128): rwkv6-7b's (B, S, H, P), zamba2-2.7b's (B, S, H,
+# P, N)
+FULL_WKV, FULL_SSD = (4, 256, 64, 64), (4, 256, 80, 64, 64)
 WKV_STATE_TOL, SSD_STATE_TOL = 2e-3, 1e-3
 # full-width prefill logits, kernel path (B3/B4, and B1 in zamba2's
 # shared MLP) against the plain path (chunked scans, plain MLP) on the
@@ -117,20 +123,27 @@ def time_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20, tries: int = 3) -> float:
     """Device time of one fn() by torch.profiler: the time of the device
     kernels that ``reps`` calls ran, over ``reps``, after one warm-up.
-    Unlike time_ms it leaves out the host's launch overhead."""
+    Unlike time_ms it leaves out the host's launch overhead.  A profile
+    that recorded no device time at all (the profiler's tracing did not
+    start) is taken again, up to ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / reps
+    raise AssertionError(f"the profiler recorded no device time in {tries} "
+                         f"tries")
 
 
 def bound_ms(nbytes: int, flops: int, dtype: torch.dtype) -> tuple[float,
@@ -162,16 +175,31 @@ def rand(shape, dtype, gen, scale=1.0):
 
 
 # --------------------------------------------------------------- phase 2
-def hgmma_counts(lib_dir: pathlib.Path) -> dict | None:
-    """HGMMA (wgmma) instructions in each bf16 tensor-core kernel of the
-    built libraries, from ``cuobjdump -sass``; None where the toolkit has
-    no cuobjdump."""
+# the tensor-core kernels by library: a pattern of the SASS function name
+# (its mangled name), the instruction that must appear, and how to name it
+MMA_KERNELS = (
+    ("libgoma_gemm.so", r"goma_matmul_wgmmaILi(\d+)E", "HGMMA",
+     "goma_matmul_wgmma<{}>"),
+    ("libgoma_fused.so", r"goma_fused_wgmma()", "HGMMA", "goma_fused_wgmma"),
+    ("libwkv6.so", r"(wkv6_kernel)I(f|13__nv_bfloat16)()E",
+     "HMMA.1688.F32.TF32", "{}<{}{}>"),
+    ("libmamba2_ssd.so",
+     r"(ssd_scan_kernel|ssd_cb_kernel)I(f|13__nv_bfloat16)((?:Li\d+E)*)E",
+     "HMMA.1688.F32.TF32", "{}<{}{}>"))
+# the names' parts as C++ writes them: the I/O type, the (P, N) sizes
+TYPES = {"f": "float", "13__nv_bfloat16": "bf16"}
+
+
+def mma_counts(lib_dir: pathlib.Path) -> dict | None:
+    """Tensor-core instructions in each tensor-core kernel of the built
+    libraries, from ``cuobjdump -sass``: HGMMA (wgmma) in the bf16 GEMM
+    kernels, TF32 HMMA (mma.sync m16n8k8, the 3xTF32 products) in the
+    scans; None where the toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
     counts = {}
-    for lib, pattern in (("libgoma_gemm.so", r"goma_matmul_wgmmaILi(\d+)E"),
-                         ("libgoma_fused.so", r"goma_fused_wgmma()")):
+    for lib, pattern, op, label in MMA_KERNELS:
         sass = subprocess.run([tool, "-sass", str(lib_dir / lib)],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -179,12 +207,12 @@ def hgmma_counts(lib_dir: pathlib.Path) -> dict | None:
         for line in sass.splitlines():
             if "Function :" in line:
                 m = re.search(pattern, line)
-                name = None if m is None else (
-                    f"goma_matmul_wgmma<{m.group(1)}>" if m.group(1)
-                    else "goma_fused_wgmma")
+                name = None if m is None else label.format(
+                    *(TYPES.get(g, re.sub(r"Li(\d+)E", r", \1", g))
+                      for g in m.groups()))
                 if name:
                     counts[name] = 0
-            elif name and "HGMMA" in line:
+            elif name and op in line:
                 counts[name] += 1
     return counts
 
@@ -387,8 +415,9 @@ def brief(row: dict) -> dict:
 
 
 def wkv6_ops(B, S, H, P, C) -> int:
-    """Operations of the WKV6 scan (an exp counts as one), per chunk and
-    head: the intra-chunk scores (sub, exp, two multiplies and an add
+    """The CUDA-core yardstick: operations of the WKV6 scan as the
+    reference's algorithm does them, all at the fp32 rate (an exp counts
+    as one), per chunk and head: the intra-chunk scores (sub, exp, two multiplies and an add
     for each t > s and p), the bonus, the decay folds, y = scores @ v +
     r @ S, and the state update."""
     per = (C * (C - 1) // 2 * P * 5 + C * P * 3 + C * P * 5
@@ -398,10 +427,11 @@ def wkv6_ops(B, S, H, P, C) -> int:
 
 
 def ssd_ops(B, S, H, P, N, C) -> int:
-    """Operations of the SSD scan (an exp counts as one): C Bm^T once per
-    batch row and chunk (it is the same for every head); per chunk and
-    head the cumsum, xh . dt, the decayed scores, y = scores @ xdt +
-    exp(cum) C S^T, and the state update."""
+    """The CUDA-core yardstick: operations of the SSD scan as the
+    reference's algorithm does them, all at the fp32 rate (an exp counts
+    as one): C Bm^T once per batch row and chunk (it is the same for every
+    head); per chunk and head the cumsum, xh . dt, the decayed scores, y =
+    scores @ xdt + exp(cum) C S^T, and the state update."""
     per_row = C * (C + 1) // 2 * N * 2
     per_head = (C * 2 + C * P + C * (C + 1) // 2 * 3
                 + C * (C + 1) // 2 * P * 2 + C * N * P * 2 + C * P * 2
@@ -409,79 +439,170 @@ def ssd_ops(B, S, H, P, N, C) -> int:
     return B * (S // C) * (per_row + H * per_head)
 
 
-def check_wkv6(shape, chunk, dtype, gen) -> dict:
+# the scan kernels' sub-chunk and B3's decay-factoring block (csrc/)
+SUB, BLK = 32, 16
+
+
+def wkv6_work(B, S, H, P) -> tuple[int, int]:
+    """(product flops, other operations) of the factored WKV6 scan, per
+    sub-chunk of SUB tokens and head.  Products: the scores below the
+    diagonal blocks (BLK x BLK x P), y's intra part (block rows of 16 and
+    32 keys) and r S, and the state update k^T v.  Other operations (an
+    exp counts as one): the diagonal blocks' exact terms (sub, exp, two
+    multiplies, an add) and bonus, the factors of the block below them,
+    the cumsum, the decay folds and the state's decay."""
+    products = 2 * (BLK * BLK * P + (BLK * BLK + BLK * 2 * BLK) * P
+                    + 2 * SUB * P * P)
+    pairs = 2 * BLK * (BLK - 1) // 2
+    other = (pairs * P * 5 + SUB * P * 3 + 2 * BLK * P * 3 + SUB * P
+             + SUB * P * 5 + P + 2 * P * P)
+    n = B * H * -(-S // SUB)
+    return n * products, n * other
+
+
+def ssd_work(B, S, H, P, N) -> tuple[int, int]:
+    """(product flops, other operations) of the SSD scan as the kernels do
+    it: C Bm^T once per (batch, sub-chunk); per sub-chunk and head y's
+    intra part (block rows of 16 and 32 keys), C S^T and the state update.
+    Other operations (an exp counts as one): the cumsum and its exps, the
+    decayed scores (sub, exp, multiply), xh dt, the suffix and exp(cum)
+    scalings, and the state's decay."""
+    subs = -(-S // SUB)
+    products = (B * subs * 2 * SUB * SUB * N
+                + B * H * subs * 2 * ((BLK * BLK + BLK * 2 * BLK) * P
+                                      + 2 * SUB * N * P))
+    other = B * H * subs * (SUB * 5 + SUB * (SUB + 1) // 2 * 3
+                            + SUB * P * 4 + 2 * P * N)
+    return products, other
+
+
+def scan_bound(nbytes: int, products: int, other: int) -> tuple[float, str]:
+    """The least time the card could take for a scan's work: the largest
+    of its bytes over the memory rate, its products over the TF32
+    tensor-core rate and its other operations over the fp32 rate (the
+    three run on separate units)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(products / TF32_FLOPS, other / PEAK_FLOPS[torch.float32]) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# log-decays per step: "typical" as the reference's kernel tests draw
+# them (B3 -exp(N(0,1) - 2), B4 a_log N(0,1) * 0.2 with dt = softplus
+# N(0,1): about e^-90 a chunk of 128); "mild": B3 at the model's decay
+# bias -6, B4 at a_log -4 (-1 to -2 a chunk), so that the state carried
+# from one chunk into the next is visible; "strong": B3 down to -5 a step,
+# where the factored partial products underflow (B4: a_log 1.5)
+WKV_LOGW = {"typical": lambda z: -torch.exp(z - 2.0),
+            "mild": lambda z: -torch.exp(z * 0.5 - 6.0),
+            "strong": lambda z: -5.0 * torch.special.ndtr(z)}
+SSD_A_LOG = {"typical": 0.0, "mild": -4.0, "strong": 1.5}
+
+
+def scan_timing(fn, plain, nbytes, work, cuda_core_ops, ctas, smem,
+                ctas_per_sm) -> dict:
+    """A scan row's times (events and the profiler's device time, the
+    plain version's), its bound and the CUDA-core yardstick's, and its
+    CTAs."""
+    bound, by = scan_bound(nbytes, *work)
+    cuda_core_bound, _ = bound_ms(nbytes, cuda_core_ops, torch.float32)
+    row = {"ms": time_ms(fn), "device_ms": device_ms(fn),
+           "plain_ms": time_ms(plain), "library_ms": None,
+           "bound_ms": bound, "bound_by": by,
+           "cuda_core_bound_ms": cuda_core_bound,
+           "product_flops": work[0], "other_ops": work[1], "bytes": nbytes,
+           "ctas": ctas, "smem_bytes": smem, "ctas_per_sm": ctas_per_sm}
+    row.update(bound_share=bound / row["ms"],
+               device_bound_share=bound / row["device_ms"])
+    return row
+
+
+def check_wkv6(shape, chunk, dtype, gen, *, decay="typical",
+               timed=True) -> dict:
     """B3 against its plain version and, in y, against the sequential
-    oracle, which sums in another order; with kernel and plain times, the
-    bound, and the device kernels the plain version runs."""
+    oracle, which sums in another order; timed: kernel and plain times,
+    the bound, and the device kernels the plain version runs."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.goma_gemm import DTYPE_CODES
     from repro_torch.kernels.ref import wkv6_ref
     from repro_torch.kernels.wkv6 import wkv6_scan, wkv6_scan_plain
     B, S, H, P = shape
     r, k, v = (rand(shape, dtype, gen, 0.5) for _ in range(3))
-    logw = (-torch.exp(torch.randn(shape, generator=gen, device="cuda")
-                       - 2.0)).to(dtype)
+    logw = WKV_LOGW[decay](torch.randn(shape, generator=gen,
+                                       device="cuda")).to(dtype)
     u = torch.randn((H, P), generator=gen, device="cuda") * 0.3
     y, st = wkv6_scan(r, k, v, logw, u, chunk=chunk)
     want_y, want_st = wkv6_scan_plain(r, k, v, logw, u, chunk=chunk)
     torch.cuda.synchronize()
-    row = {"shape": list(shape), "chunk": chunk,
+    row = {"shape": list(shape), "chunk": chunk, "decay": decay,
            "dtype": dtype_name(dtype),
            "y_scale": float(want_y.float().abs().max()),
            "max_abs_err": close_to_scale(y, want_y, SCAN_Y_TOL[dtype]),
            "state_max_abs_err": close_to_scale(st, want_st, WKV_STATE_TOL),
            "oracle_max_abs_err": close_to_scale(
                y, wkv6_ref(*(t.float() for t in (r, k, v, logw)), u),
-               SCAN_Y_TOL[dtype]),
-           "plain_device_kernels": device_kernels(
-               lambda: wkv6_scan_plain(r, k, v, logw, u, chunk=chunk))}
-    # bytes: r, k, v, logw read and y written once, u, the final state
-    nbytes = (5 * B * S * H * P * dtype.itemsize + H * P * 4
-              + B * H * P * P * 4)
-    bound, by = bound_ms(nbytes, wkv6_ops(B, S, H, P, chunk), torch.float32)
-    row.update(
-        ms=time_ms(lambda: wkv6_scan(r, k, v, logw, u, chunk=chunk)),
-        plain_ms=time_ms(
-            lambda: wkv6_scan_plain(r, k, v, logw, u, chunk=chunk)),
-        library_ms=None, bound_ms=bound, bound_by=by)
-    print(f"  B3 {brief(row)}")
+               SCAN_Y_TOL[dtype])}
+    if timed:
+        lib, code = _build.load(), DTYPE_CODES[dtype]
+        # bytes: r, k, v, logw read and y written once, u, the final state
+        nbytes = (5 * B * S * H * P * dtype.itemsize + H * P * 4
+                  + B * H * P * P * 4)
+        row.update(scan_timing(
+            lambda: wkv6_scan(r, k, v, logw, u, chunk=chunk),
+            lambda: wkv6_scan_plain(r, k, v, logw, u, chunk=chunk), nbytes,
+            wkv6_work(B, S, H, P), wkv6_ops(B, S, H, P, chunk), B * H,
+            lib.wkv6_smem_bytes(code), lib.wkv6_ctas_per_sm(code)))
+        row["plain_device_kernels"] = device_kernels(
+            lambda: wkv6_scan_plain(r, k, v, logw, u, chunk=chunk))
+        print(f"  B3 {brief(row)}")
+    else:
+        print(f"  B3 {row}")
     return row
 
 
-def check_ssd(shape, chunk, dtype, gen) -> dict:
+def check_ssd(shape, chunk, dtype, gen, *, decay="typical",
+              timed=True) -> dict:
     """B4 against its plain version and, in y, against the sequential
-    oracle (with D = 0), which sums in another order; with kernel and
+    oracle (with D = 0), which sums in another order; timed: kernel and
     plain times, the bound, and the device kernels the plain version
     runs."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.goma_gemm import DTYPE_CODES
     from repro_torch.kernels.mamba2_ssd import ssd_scan, ssd_scan_plain
     from repro_torch.kernels.ref import ssd_ref
     B, S, H, P, N = shape
     xh = rand((B, S, H, P), dtype, gen, 0.5)
     dt = torch.nn.functional.softplus(
         torch.randn((B, S, H), generator=gen, device="cuda")).to(dtype)
-    a_log = torch.randn((H,), generator=gen, device="cuda") * 0.2
+    a_log = (torch.randn((H,), generator=gen, device="cuda") * 0.2
+             + SSD_A_LOG[decay])
     Bm, Cm = (rand((B, S, N), dtype, gen, 0.5) for _ in range(2))
     y, st = ssd_scan(xh, dt, a_log, Bm, Cm, chunk=chunk)
     want_y, want_st = ssd_scan_plain(xh, dt, a_log, Bm, Cm, chunk=chunk)
     torch.cuda.synchronize()
-    row = {"shape": list(shape), "chunk": chunk,
+    row = {"shape": list(shape), "chunk": chunk, "decay": decay,
            "dtype": dtype_name(dtype),
            "y_scale": float(want_y.float().abs().max()),
            "max_abs_err": close_to_scale(y, want_y, SCAN_Y_TOL[dtype]),
            "state_max_abs_err": close_to_scale(st, want_st, SSD_STATE_TOL),
            "oracle_max_abs_err": close_to_scale(
                y, ssd_ref(*(t.float() for t in (xh, dt, a_log, Bm, Cm)),
-                          torch.zeros_like(a_log)), SCAN_Y_TOL[dtype]),
-           "plain_device_kernels": device_kernels(
-               lambda: ssd_scan_plain(xh, dt, a_log, Bm, Cm, chunk=chunk))}
-    # bytes: xh, dt, Bm, Cm read and y written once, a_log, the final state
-    nbytes = ((2 * B * S * H * P + B * S * H + 2 * B * S * N) * dtype.itemsize
-              + H * 4 + B * H * P * N * 4)
-    bound, by = bound_ms(nbytes, ssd_ops(B, S, H, P, N, chunk), torch.float32)
-    row.update(
-        ms=time_ms(lambda: ssd_scan(xh, dt, a_log, Bm, Cm, chunk=chunk)),
-        plain_ms=time_ms(
-            lambda: ssd_scan_plain(xh, dt, a_log, Bm, Cm, chunk=chunk)),
-        library_ms=None, bound_ms=bound, bound_by=by)
-    print(f"  B4 {brief(row)}")
+                          torch.zeros_like(a_log)), SCAN_Y_TOL[dtype])}
+    if timed:
+        lib, code = _build.load(), DTYPE_CODES[dtype]
+        # bytes: xh, dt, Bm, Cm read and y written once, a_log, the state
+        nbytes = ((2 * B * S * H * P + B * S * H + 2 * B * S * N)
+                  * dtype.itemsize + H * 4 + B * H * P * N * 4)
+        row.update(scan_timing(
+            lambda: ssd_scan(xh, dt, a_log, Bm, Cm, chunk=chunk),
+            lambda: ssd_scan_plain(xh, dt, a_log, Bm, Cm, chunk=chunk),
+            nbytes, ssd_work(B, S, H, P, N), ssd_ops(B, S, H, P, N, chunk),
+            B * H, lib.ssd_smem_bytes(P, N, code),
+            lib.ssd_ctas_per_sm(P, N, code)))
+        row["plain_device_kernels"] = device_kernels(
+            lambda: ssd_scan_plain(xh, dt, a_log, Bm, Cm, chunk=chunk))
+        print(f"  B4 {brief(row)}")
+    else:
+        print(f"  B4 {row}")
     return row
 
 
@@ -736,7 +857,7 @@ def serve_full(arch: str, prompt_len: int, smi: str,
 
 # device-kernel name fragments of the port's hand-written kernels
 PORT_KERNELS = {"goma": "goma_", "b1": "goma_matmul", "wkv6": "wkv6_kernel",
-                "ssd": "ssd_kernel"}
+                "ssd": "ssd_scan_kernel", "ssd_cb": "ssd_cb_kernel"}
 
 
 def profile_generate(eng, prompts, smi: str, out: pathlib.Path,
@@ -819,13 +940,23 @@ def main() -> None:
                 if "registers" in line or "spill" in line:
                     print(f"  {src}: {line.strip()}")
         _build.load()
-        # the bf16 kernels run on the tensor cores: their SASS has HGMMA
-        hgmma = hgmma_counts(report.path)
-        print(f"  HGMMA instructions per bf16 kernel (cuobjdump -sass): "
-              f"{hgmma if hgmma is not None else 'no cuobjdump'}")
-        if hgmma is not None and (len(hgmma) != 4
-                                  or not all(hgmma.values())):
-            raise AssertionError(f"a bf16 kernel without HGMMA: {hgmma}")
+        # the bf16 GEMM kernels and the scans run on the tensor cores:
+        # their SASS has HGMMA, or TF32 HMMA
+        mma = mma_counts(report.path)
+        print(f"  tensor-core instructions per kernel (cuobjdump -sass; "
+              f"HGMMA in goma_*, TF32 HMMA in the scans): "
+              f"{mma if mma is not None else 'no cuobjdump'}")
+        # B1 at three slice widths, B2; B3 and B4's prologue and scan in
+        # two dtypes, B4's at the (N) and (P, N) it is built for
+        families = {"goma_matmul_wgmma": 3, "goma_fused_wgmma": 1,
+                    "wkv6_kernel": 2, "ssd_cb_kernel": 4,
+                    "ssd_scan_kernel": 8}
+        if mma is not None and (
+                {f: sum(k.startswith(f + "<") or k == f for k in mma)
+                 for f in families} != families
+                or not all(mma.values())):
+            raise AssertionError(f"a tensor-core kernel without its MMA "
+                                 f"instructions: {mma}")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     b1_rows, b2_rows, combine_rows = [], [], []
@@ -866,14 +997,21 @@ def main() -> None:
         tiling = check_tiling_independence(gen)
         for r in b1_rows + b2_rows + combine_rows + tiling:
             print("  " + json.dumps(r))
-        # the scans: an odd small shape (a padded register tile, a chunk
-        # of 8), and the full-width prefill shapes at chunk 128
-        wkv_rows = [check_wkv6((2, 40, 3, 64), 8, dtype, gen)
+        # the scans: an odd small shape (a chunk of 8, the last 32-token
+        # sub-chunk padded), the full-width prefill shapes at chunk 128,
+        # timed, and there at the mild and strong decays too
+        wkv_rows = [check_wkv6((2, 40, 3, 64), 8, dtype, gen, timed=False)
                     for dtype in (torch.float32, torch.bfloat16)]
-        wkv_rows.append(check_wkv6((4, 256, 64, 64), 128, torch.float32,
-                                   gen))
-        ssd_rows = [check_ssd((2, 40, 3, 64, 16), 8, torch.float32, gen),
-                    check_ssd((4, 256, 80, 64, 64), 128, torch.float32, gen)]
+        ssd_rows = [check_ssd((2, 40, 3, 64, 16), 8, torch.float32, gen,
+                              timed=False)]
+        wkv_full = check_wkv6(FULL_WKV, 128, torch.float32, gen)
+        ssd_full = check_ssd(FULL_SSD, 128, torch.float32, gen)
+        wkv_rows += [wkv_full] + [
+            check_wkv6(FULL_WKV, 128, torch.float32, gen, decay=d,
+                       timed=False) for d in ("mild", "strong")]
+        ssd_rows += [ssd_full] + [
+            check_ssd(FULL_SSD, 128, torch.float32, gen, decay=d,
+                      timed=False) for d in ("mild", "strong")]
     checked = ({checked_key("goma_matmul", r) for r in b1_rows}
                | {checked_key("goma_combine", r) for r in combine_rows}
                | {checked_key("wkv6_scan", r) for r in wkv_rows}
@@ -931,16 +1069,19 @@ def main() -> None:
             ("goma_combine (B2's combine, between B1 links)",
              "goma_combine", comb, "serve llama3-8b full width",
              "goma_fused.cu", "src/repro/kernels/goma_fused.py:66"),
-            ("wkv6_scan (B3)", "wkv6_scan", wkv_rows[-1],
+            ("wkv6_scan (B3)", "wkv6_scan", wkv_full,
              "serve rwkv6-7b full width", "wkv6.cu",
              "src/repro/kernels/wkv6.py:78"),
-            ("ssd_scan (B4)", "ssd_scan", ssd_rows[-1],
+            ("ssd_scan (B4)", "ssd_scan", ssd_full,
              "serve zamba2-2.7b full width", "mamba2_ssd.cu",
              "src/repro/kernels/mamba2_ssd.py:76")):
-        extra = ({k: row[k] for k in (
-            "slice_n", "ctas", "stages", "device_ms", "library_device_ms",
-            "bound_share", "vs_library", "device_bound_share",
-            "device_vs_library")} if fn == "goma_matmul" else {})
+        extra = {k: row[k] for k in (
+            ("slice_n", "ctas", "stages", "device_ms", "library_device_ms",
+             "bound_share", "vs_library", "device_bound_share",
+             "device_vs_library") if fn == "goma_matmul" else
+            ("ctas", "smem_bytes", "ctas_per_sm", "device_ms",
+             "cuda_core_bound_ms", "bound_share", "device_bound_share")
+            if fn in ("wkv6_scan", "ssd_scan") else ())}
         kernels.append({
             **extra,
             "name": name, "route": "cuda",
@@ -956,7 +1097,7 @@ def main() -> None:
                                if v[fn]}})
     if out is not None:
         (out / "chip_smoke.json").write_text(json.dumps(
-            {"device": smi, "hgmma": hgmma, "b1": b1_rows,
+            {"device": smi, "mma": mma, "b1": b1_rows,
              "b1_tiling_independence": tiling, "b2": b2_rows,
              "combine": combine_rows, "wkv6": wkv_rows, "ssd": ssd_rows,
              "serve_full": full["serve"], "serve_rwkv": rwkv["serve"],

@@ -42,10 +42,13 @@ SIGNATURES = {
     "goma_combine_launch": [_P, _P, _P, _L, _I, _I, _P],
     "goma_fused_stage_bytes": [],
     "wkv6_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "wkv6_smem_bytes": [_I, _I],
-    "ssd_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                   _P],
+    "wkv6_smem_bytes": [_I],
+    "wkv6_ctas_per_sm": [_I],
+    "ssd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                   _I, _P],
     "ssd_smem_bytes": [_I, _I, _I],
+    "ssd_ctas_per_sm": [_I, _I, _I],
+    "ssd_scratch_floats": [_I, _I, _I],
 }
 
 
@@ -69,11 +72,16 @@ def _lib_name(src: str) -> str:
     return f"lib{src.rsplit('.', 1)[0]}.so"
 
 
+def _log_name(out: pathlib.Path, src: str) -> pathlib.Path:
+    return out / f"{src}.ptxas.log"
+
+
 @dataclasses.dataclass
 class BuildReport:
     """What ``build()`` did: the library directory, the seconds nvcc took
     (0 when the libraries were already built), and nvcc's ``-Xptxas -v``
-    report (registers, shared memory, spills) per compiled source."""
+    report (registers, shared memory, spills) per source, kept beside the
+    libraries."""
 
     path: pathlib.Path
     seconds: float = 0.0
@@ -86,6 +94,8 @@ def build() -> BuildReport:
     out = BUILD_ROOT / _digest()
     report = BuildReport(out)
     if all((out / _lib_name(s)).exists() for s in SOURCES):
+        report.ptxas = {s: _log_name(out, s).read_text() for s in SOURCES
+                        if _log_name(out, s).exists()}
         return report
     t0 = time.perf_counter()
     out.mkdir(parents=True, exist_ok=True)
@@ -100,6 +110,7 @@ def build() -> BuildReport:
     for src, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
         report.ptxas[src] = log
+        _log_name(out, src).write_text(log)
         if proc.returncode != 0:
             failed.append(f"{src}:\n{log}")
         else:

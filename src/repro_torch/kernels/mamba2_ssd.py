@@ -2,16 +2,26 @@
 
 Replaces the Pallas TPU kernel ``ssd_pallas`` of the reference
 (``src/repro/kernels/mamba2_ssd.py``).  The kernel is CUDA C++ for sm_90a
-in ``csrc/mamba2_ssd.cu``: one CTA per (batch, head) stream walks the
-chunks in order with the P x N fp32 state in shared memory.  Like the
-TPU kernel it leaves out the D x skip term, which the caller adds.
+in ``csrc/mamba2_ssd.cu``.  Like the TPU kernel it leaves out the D x
+skip term, which the caller adds.
 
-What bounds it on the H100: at the zamba2-2.7b prefill shape the
-multiply-adds of the intra-chunk and state products, ahead of the
-operand bytes.  This first version runs them on the CUDA cores in fp32
-(PERF.md has its time beside its bound).
+What bounds it on the H100: at the zamba2-2.7b prefill shape the bytes of
+xh and y (48 MB with the rest, 0.014 ms at 3.35 TB/s).  Products on the
+CUDA cores, C Bm^T recomputed by every head and one CTA per SM would keep
+it far above that.
 
-``ssd_scan`` launches the kernel for CUDA tensors and counts the launch
+What the design does about it: a prologue kernel computes C Bm^T once
+per (batch, sub-chunk of 32 tokens) into a scratch the wrapper allocates,
+beside fp32 copies of that sub-chunk's Bm and Cm rows; then one CTA per
+(batch, head) stream walks the sequence in sub-chunks of 32 tokens (the
+same function for any chunk), three CTAs to an SM, with the next
+sub-chunk's rows in flight (a TMA box of xh, one bulk copy of Bm and Cm,
+on an mbarrier ring) while one computes.  The cumulative decays are warp
+scans, and every product runs on the tensor cores by 3xTF32 at fp32
+accuracy.  P and N are each 16 or 64.  Both launches are one counted
+call.
+
+``ssd_scan`` launches the kernels for CUDA tensors and counts the call
 in ``ssd_scan.launches``; for CPU tensors it runs ``ssd_scan_plain``,
 which walks the chunks in the same order and computes each as the TPU
 kernel's body does.
@@ -20,9 +30,12 @@ from __future__ import annotations
 
 import torch
 
-from ..core.hopper_mapping import SMEM_BYTES
 from . import _build
 from .goma_gemm import DTYPE_CODES, check_cuda_operands
+
+# the head (P) and state (N) sizes the kernel is built for, each one of
+# these: zamba2-2.7b's 64 x 64 and its smoke config's 16 x 16
+WIDTHS = (16, 64)
 
 
 def _check_shapes(xh, dt, a_log, Bm, Cm, chunk: int) -> None:
@@ -87,16 +100,18 @@ def ssd_scan(xh, dt, a_log, Bm, Cm, *, chunk: int = 64):
     check_cuda_operands("ssd_scan", xh, dt, Bm, Cm)
     check_cuda_operands("ssd_scan", a_log)
     lib = _build.load()
-    if P % 4 or N % 4 or lib.ssd_smem_bytes(chunk, P, N) > SMEM_BYTES:
-        raise ValueError(f"ssd_scan takes P and N multiples of 4 whose "
-                         f"chunk fits a CTA's shared memory, not P={P}, "
-                         f"N={N}, chunk={chunk}")
+    code = DTYPE_CODES[xh.dtype]
+    if P not in WIDTHS or N not in WIDTHS:
+        raise ValueError(f"ssd_scan takes P and N each one of {WIDTHS}, "
+                         f"not P={P}, N={N}")
     y = torch.empty_like(xh)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=xh.device)
+    rec = torch.empty(lib.ssd_scratch_floats(B, S, N), dtype=torch.float32,
+                      device=xh.device)
     err = lib.ssd_launch(
         xh.data_ptr(), dt.data_ptr(), a_log.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), y.data_ptr(), state.data_ptr(), B, S, H, P, N, chunk,
-        DTYPE_CODES[xh.dtype],
+        Cm.data_ptr(), y.data_ptr(), state.data_ptr(), rec.data_ptr(), B, S,
+        H, P, N, chunk, code,
         torch.cuda.current_stream(xh.device).cuda_stream)
     _build.check(err, "ssd_scan")
     ssd_scan.launches += 1

@@ -2,15 +2,20 @@
 
 Replaces the Pallas TPU kernel ``wkv6_pallas`` of the reference
 (``src/repro/kernels/wkv6.py``).  The kernel is CUDA C++ for sm_90a in
-``csrc/wkv6.cu``: one CTA per (batch, head) stream walks the chunks in
-order, with the P x P fp32 state in shared memory, and forms the
-intra-chunk scores with their decays on the fly, so the (C, C, P) decay
-tensor never exists.
+``csrc/wkv6.cu``.
 
-What bounds it on the H100: at the rwkv6-7b prefill shape the
-intra-chunk scores' exps and multiply-adds (C^2 P / 2 of each per chunk
-and head), ahead of the operand bytes.  This first version runs them on
-the CUDA cores in fp32 (PERF.md has its time beside its bound).
+What bounds it on the H100: at the rwkv6-7b prefill shape the bytes of
+r, k, v, the log-decays and y (88 MB with the state, 0.026 ms at 3.35
+TB/s).  An exp per (t, s, p) of the intra-chunk scores, products on the
+CUDA cores and one CTA per SM would keep it far above that.
+
+What the design does about it: one CTA per (batch, head) stream walks the
+sequence in sub-chunks of 32 tokens (the same function for any chunk),
+two CTAs to an SM, with the next sub-chunk's rows in flight (TMA boxes on
+an mbarrier ring) while one computes.  The head size is RWKV-6's 64.  The decays are factored per
+block of 16 tokens, so only the diagonal 16 x 16 blocks take an exp per
+(t, s, p); every product runs on the tensor cores by 3xTF32 at fp32
+accuracy; the cumulative decays are warp scans.
 
 ``wkv6_scan`` launches the kernel for CUDA tensors and counts the launch
 in ``wkv6_scan.launches``; for CPU tensors it runs ``wkv6_scan_plain``,
@@ -21,9 +26,11 @@ from __future__ import annotations
 
 import torch
 
-from ..core.hopper_mapping import SMEM_BYTES
 from . import _build
 from .goma_gemm import DTYPE_CODES, check_cuda_operands
+
+# the head size the kernel is built for: RWKV-6's, the only one it has
+HEAD = 64
 
 
 def _check_shapes(r, k, v, logw, u, chunk: int) -> None:
@@ -87,10 +94,9 @@ def wkv6_scan(r, k, v, logw, u, *, chunk: int = 64):
     check_cuda_operands("wkv6_scan", r, k, v, logw)
     check_cuda_operands("wkv6_scan", u)
     lib = _build.load()
-    if P % 4 or lib.wkv6_smem_bytes(chunk, P) > SMEM_BYTES:
-        raise ValueError(f"wkv6_scan takes P a multiple of 4 whose chunk "
-                         f"fits a CTA's shared memory, not P={P}, "
-                         f"chunk={chunk}")
+    if P != HEAD:
+        raise ValueError(f"wkv6_scan takes RWKV-6's head size P={HEAD}, "
+                         f"not P={P}")
     y = torch.empty_like(r)
     state = torch.empty((B, H, P, P), dtype=torch.float32, device=r.device)
     err = lib.wkv6_launch(

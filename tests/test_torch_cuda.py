@@ -184,8 +184,8 @@ def test_cuda_b1_bf16_k_tail(cuda_device, shape):
         np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
 
 
-# (B, S, H, P, chunk): an odd small shape, a shape that needs no padding
-# of the chunk to the register tile, and one chunk of 128
+# (B, S, H, P, chunk): an odd small shape (its last 32-token sub-chunk
+# padded), a shape of whole sub-chunks, and one chunk of 128
 WKV_SHAPES = [(2, 40, 3, 64, 8), (2, 128, 2, 64, 32), (1, 256, 2, 64, 128)]
 # (B, S, H, P, N, chunk)
 SSD_SHAPES = [(2, 40, 3, 64, 16, 8), (2, 128, 2, 16, 16, 32),
@@ -203,21 +203,38 @@ def _close_to_scale(got, want, tol):
     assert err <= tol * scale, (err, tol, scale)
 
 
-def wkv_inputs(seed, B, S, H, P, dtype):
+# log-decays per step: B3's logw and B4's a_log.  "typical" is how the
+# reference's kernel tests draw them; "mild" is B3 at the model's decay
+# bias -6 and B4 at a_log -4 (about -1 to -2 a chunk of 128, so the state
+# carried from one chunk into the next is visible); "strong" takes B3's
+# logw down to -5 a step and B4's a_log to 1.5, where the factored
+# partial products underflow.
+def wkv_logw(rng, shape, decay="typical"):
+    return {"mild": lambda: -np.exp(rng.standard_normal(shape) * 0.5 - 6.0),
+            "typical": lambda: -np.exp(rng.standard_normal(shape) - 2.0),
+            "strong": lambda: -rng.uniform(0.0, 5.0, shape)}[decay]()
+
+
+def ssd_a_log(rng, H, decay="typical"):
+    return rng.standard_normal(H) * 0.2 + {"mild": -4.0, "typical": 0.0,
+                                           "strong": 1.5}[decay]
+
+
+def wkv_inputs(seed, B, S, H, P, dtype, decay="typical"):
     rng = np.random.default_rng(seed)
     r, k, v = (rng.standard_normal((B, S, H, P)) * 0.5 for _ in range(3))
-    logw = -np.exp(rng.standard_normal((B, S, H, P)) - 2.0)
+    logw = wkv_logw(rng, (B, S, H, P), decay)
     u = rng.standard_normal((H, P)) * 0.3
     return ([torch.from_numpy(a.astype(np.float32)).to(DTYPES[dtype])
              for a in (r, k, v, logw)]
             + [torch.from_numpy(u.astype(np.float32))])
 
 
-def ssd_inputs(seed, B, S, H, P, N):
+def ssd_inputs(seed, B, S, H, P, N, decay="typical"):
     rng = np.random.default_rng(seed)
     xh = rng.standard_normal((B, S, H, P)) * 0.5
     dt = np.log1p(np.exp(rng.standard_normal((B, S, H))))
-    a_log = rng.standard_normal(H) * 0.2
+    a_log = ssd_a_log(rng, H, decay)
     Bm, Cm = (rng.standard_normal((B, S, N)) * 0.5 for _ in range(2))
     return [torch.from_numpy(a.astype(np.float32))
             for a in (xh, dt, a_log, Bm, Cm)]
@@ -256,15 +273,37 @@ def test_cuda_ssd_matches_plain(cuda_device, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("decay", ["mild", "typical", "strong"])
+def test_cuda_scans_hold_at_every_decay(cuda_device, decay):
+    """Both scans at two chunks of 128 against their plain versions and
+    the sequential oracles (B4's without the D term)."""
+    from repro_torch.kernels.ref import ssd_ref, wkv6_ref
+    ts = wkv_inputs(14, 2, 256, 2, 64, "f32", decay)
+    y, st = wkv6_scan(*(t.to(cuda_device) for t in ts), chunk=128)
+    want_y, want_st = wkv6_scan_plain(*ts, chunk=128)
+    _close_to_scale(y, want_y, SCAN_Y_TOL["f32"])
+    _close_to_scale(st, want_st, 2e-3)
+    _close_to_scale(y, wkv6_ref(*ts), SCAN_Y_TOL["f32"])
+    ts = ssd_inputs(15, 2, 256, 2, 64, 64, decay)
+    y, st = ssd_scan(*(t.to(cuda_device) for t in ts), chunk=128)
+    want_y, want_st = ssd_scan_plain(*ts, chunk=128)
+    _close_to_scale(y, want_y, SCAN_Y_TOL["f32"])
+    _close_to_scale(st, want_st, 1e-3)
+    _close_to_scale(y, ssd_ref(*ts, torch.zeros(2)), SCAN_Y_TOL["f32"])
+
+
+@pytest.mark.cuda
 def test_cuda_scans_refuse_what_they_cannot_take(cuda_device):
     """A CUDA tensor launches the kernel or raises; nothing falls back."""
     r, k, v, logw, u = (t.to(cuda_device)
-                        for t in wkv_inputs(12, 1, 256, 1, 64, "f32"))
+                        for t in wkv_inputs(12, 1, 256, 1, 128, "f32"))
     with pytest.raises(ValueError):
-        wkv6_scan(r, k, v, logw, u, chunk=256)      # exceeds shared memory
+        wkv6_scan(r, k, v, logw, u, chunk=256)  # P 128: not RWKV-6's 64
+    r, k, v, logw, u = (t.to(cuda_device)
+                        for t in wkv_inputs(12, 1, 256, 1, 64, "f32"))
     with pytest.raises(ValueError):
         wkv6_scan(r, k, v, logw.cpu(), u, chunk=8)  # mixed devices
     xh, dt, a_log, Bm, Cm = (t.to(cuda_device)
                              for t in ssd_inputs(13, 1, 16, 1, 6, 16))
     with pytest.raises(ValueError):
-        ssd_scan(xh, dt, a_log, Bm, Cm, chunk=8)    # P not a multiple of 4
+        ssd_scan(xh, dt, a_log, Bm, Cm, chunk=8)    # P 6: not 16 or 64
