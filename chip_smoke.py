@@ -10,7 +10,11 @@ decomposition of one problem, and serves three paths, checking each
 one's launch counts:
 
 - ``llama3-8b``: the smoke config through the fused kernel (B2), the
-  full width through the GEMM kernel (B1) and ``goma_combine``;
+  full width through the GEMM kernel (B1) and ``goma_combine``; and the
+  continuous scheduler, on the smoke config (B2; streams equal to the
+  static oracle and to the CPU) and at full width (B1 and
+  ``goma_combine`` at the slots' and the chunk widths' shapes, and in
+  fp32 every emitted token's logits against a static prefill);
 - ``rwkv6-7b``: the smoke config (card tokens == CPU tokens) and the
   full width, with the prefill's WKV6 scans through B3;
 - ``zamba2-2.7b``: the smoke config (card tokens == CPU tokens) and the
@@ -27,7 +31,8 @@ full-width ``generate`` of each model runs under ``torch.profiler``:
 device time by kernel and the device's busy and idle shares go to
 ``DIR/profile_serve.{json,txt}`` (llama3-8b),
 ``DIR/profile_serve_rwkv.{json,txt}`` and
-``DIR/profile_serve_zamba2.{json,txt}``.  Any failed phase raises and
+``DIR/profile_serve_zamba2.{json,txt}``, and one more scheduler replay
+to ``DIR/profile_sched.{json,txt}``.  Any failed phase raises and
 ends the script with a non-zero code; without a CUDA card it prints no
 result.
 """
@@ -69,13 +74,29 @@ FULL = dict(arch="llama3-8b", batch=4, prompt_len=16, new_tokens=8)
 # the recurrent paths' prompts: 200 is two chunks of 128 at full width,
 # the second one padded; 12 is two chunks of the smoke configs' 8
 RECURRENT = dict(prompt_len=200, smoke_prompt_len=12)
+# the continuous scheduler at full width (phase 11): llama3-8b serving a
+# Poisson trace of 16 requests (8 arrivals a second, prompts uniform in
+# 16-200, 16 new tokens) on 8 slots with prefill chunks of 8, 32 and 128;
+# a prompt of 200 pads to 256 positions, so the cache holds 256 + 16
+SCHED_FULL = dict(slots=8, chunk_widths=(8, 32, 128), requests=16,
+                  arrival_rate=8.0, prompt_mix=((16, 200, 1.0),),
+                  new_tokens=16, cache_len=272)
 # the served bf16 MLPs that run B1 and goma_combine: their rows at decode
-# and in the prefill (batch x prompt), and their (d_ff, d_model)
+# and in the prefill (batch x prompt; the scheduler's slots and chunk
+# widths), and their (d_ff, d_model)
 SERVED_MLPS = {
     "llama3-8b": ((FULL["batch"], FULL["batch"] * FULL["prompt_len"]),
                   14336, 4096),
+    "llama3-8b scheduler": (tuple(sorted({SCHED_FULL["slots"],
+                                          *SCHED_FULL["chunk_widths"]})),
+                            14336, 4096),
     "zamba2-2.7b": ((FULL["batch"],
                      FULL["batch"] * RECURRENT["prompt_len"]), 10240, 2560)}
+# benchmarks/bench_serving.py's smoke trace (phase 10): 8 staggered
+# requests of 3-23 tokens, stop token 7, 12 new tokens, 3 slots, chunk
+# widths 4 and 16, cache 96
+SCHED_SMOKE = dict(requests=8, stop=7, new_tokens=12, slots=3,
+                   chunk_widths=(4, 16), cache_len=96)
 # the scans against their plain versions: the reference's tolerances
 # (tests/test_kernels.py), relative to the plain version's largest
 # magnitude: y 1e-4 (bf16 y 5e-2), state 2e-3 (B3) and 1e-3 (B4)
@@ -375,8 +396,10 @@ def check_combine(shape, dtype, gen, *, timed: bool) -> dict:
         bound, by = bound_ms(3 * n * dtype.itemsize, COMBINE_OPS * n, dtype)
         row.update(
             ms=time_ms(lambda: goma_combine(g, u)),
+            device_ms=device_ms(lambda: goma_combine(g, u)),
             plain_ms=time_ms(lambda: goma_combine_plain(g, u, "silu_mul")),
             library_ms=None, bound_ms=bound, bound_by=by)
+        row["device_bound_share"] = bound / row["device_ms"]
     return row
 
 
@@ -624,7 +647,7 @@ def checked_key(name: str, row: dict) -> tuple:
 
 @contextlib.contextmanager
 def recording_shapes(seen: dict):
-    """Count in ``seen`` every B1, goma_combine, B3 and B4 call made
+    """Count in ``seen`` every B1, B2, goma_combine, B3 and B4 call made
     through the modules that the model reaches them by, keyed as
     checked_key names the phase-3 rows."""
     from repro_torch.kernels import ops
@@ -632,6 +655,8 @@ def recording_shapes(seen: dict):
     sites = (
         (ops, "goma_matmul", lambda a, b, plan, **kw:
          ((plan.M, plan.N, plan.K), a.dtype)),
+        (ops, "goma_fused_matmul", lambda a, wg, wu, wd, plan, **kw:
+         ((plan.M, plan.FF, plan.K), a.dtype)),
         (ops, "goma_combine", lambda g, u, *args, **kw:
          (tuple(g.shape), g.dtype)),
         (rwkv, "wkv6_scan", lambda r, k, v, logw, u, *, chunk:
@@ -664,6 +689,22 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in kernel_fns().items()}
+
+
+def held_shapes(seen: dict, counts: dict, checked: set) -> dict:
+    """Raise unless the calls recorded in ``seen`` add up to the launch
+    ``counts`` kernel by kernel and every one was at a shape phase 3
+    held (``checked``); return them by kernel, for the report."""
+    by_kernel = {name: sum(n for k, n in seen.items() if k[0] == name)
+                 for name in counts}
+    unchecked = sorted(k for k in seen if k not in checked)
+    if by_kernel != counts or unchecked:
+        raise AssertionError(f"calls by shape {by_kernel} != launches "
+                             f"{counts}, or at shapes phase 3 did not "
+                             f"hold: {unchecked}")
+    return {name: [{"shape": list(k[1]), "dtype": k[2], "launches": n}
+                   for k, n in sorted(seen.items()) if k[0] == name]
+            for name in counts}
 
 
 def serve_smoke(arch: str, prompt_len: int, expect: tuple[str, ...],
@@ -721,15 +762,17 @@ def watch_logits(model) -> list:
     return finite
 
 
+def tree_float(tree: dict) -> dict:
+    """The same parameter tree in fp32 (fp32 leaves are not copied)."""
+    return {k: tree_float(v) if isinstance(v, dict) else v.float()
+            for k, v in tree.items()}
+
+
 def prefill_paths(cfg, params, toks) -> dict:
     """The first prefill's logits, kernel path against plain path: held
     within PATH_TOL in fp32 on the served weights; measured in the
     served bf16."""
     from repro_torch.models import build_model
-
-    def tree_float(tree):
-        return {k: tree_float(v) if isinstance(v, dict) else v.float()
-                for k, v in tree.items()}
 
     def logits(c, p):
         with torch.inference_mode():
@@ -820,16 +863,7 @@ def serve_full(arch: str, prompt_len: int, smi: str,
     if counts != want:
         raise AssertionError(f"{arch} launches {counts} != {want} "
                              f"({passes} forward passes)")
-    by_shape = {name: sum(n for k, n in seen.items() if k[0] == name)
-                for name in counts}
-    if by_shape != counts:
-        raise AssertionError(f"{arch}: calls by shape {by_shape} != "
-                             f"launches {counts}")
-    unchecked = sorted(k for k in seen if k not in checked)
-    if unchecked:
-        raise AssertionError(f"{arch} launched kernels at shapes that "
-                             f"phase 3 did not hold against their plain "
-                             f"versions: {unchecked}")
+    shapes = held_shapes(seen, counts, checked)
     # a second run, timed, once every plan is cached
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -844,15 +878,296 @@ def serve_full(arch: str, prompt_len: int, smi: str,
     print(f"  generate: {B * new / dt} tokens/s "
           f"({dt} s for {B}x{new} tokens), peak memory {peak} GiB")
     if out is not None:
-        profile_generate(eng, prompts, smi, out, profile_name)
+        profile_run(lambda: eng.generate(prompts), smi, out, profile_name)
     serve = {"tokens_per_s": B * new / dt, "seconds": dt,
              "forward_passes": passes, "peak_memory_gib": peak}
     if paths is not None:
         serve["prefill_vs_plain_path"] = paths
-    shapes = {name: [{"shape": list(k[1]), "dtype": k[2], "launches": n}
-                     for k, n in sorted(seen.items()) if k[0] == name]
-              for name in counts}
     return {"launches": counts, "shapes": shapes, "serve": serve}
+
+
+# ---------------------------------------------------------- phases 10-11
+def smoke_trace(vocab: int) -> list:
+    """benchmarks/bench_serving.py's smoke trace (SCHED_SMOKE)."""
+    from repro_torch.serving.sched import Request
+    rng = np.random.default_rng(0)
+    return [Request(req_id=i,
+                    tokens=rng.integers(0, vocab, (int(rng.integers(3, 24)),)),
+                    max_new_tokens=SCHED_SMOKE["new_tokens"],
+                    arrival_s=0.05 * i, stop_token=SCHED_SMOKE["stop"])
+            for i in range(SCHED_SMOKE["requests"])]
+
+
+def replay_trace(eng, reqs, **sched_cfg):
+    """The trace through a fresh ContinuousScheduler in virtual time;
+    returns (scheduler, {req_id: (tokens, finish_reason)})."""
+    from repro_torch.serving.sched import (ContinuousScheduler, SchedConfig,
+                                           TraceClock, replay)
+    clock = TraceClock()
+    sched = ContinuousScheduler(eng, SchedConfig(**sched_cfg),
+                                clock=clock.now)
+    results = replay(sched, reqs, clock)
+    return sched, {r.req_id: (r.tokens, r.finish_reason) for r in results}
+
+
+def oracle_tokens(eng, req) -> list[int]:
+    """The request alone through the static Engine.generate, trimmed to
+    what the scheduler delivers (up to its first stop token)."""
+    eng.cfg.max_new_tokens = req.max_new_tokens
+    eng.cfg.stop_token = req.stop_token
+    out = []
+    for t in eng.generate(req.tokens[None])[0][:req.max_new_tokens]:
+        out.append(int(t))
+        if req.stop_token is not None and out[-1] == req.stop_token:
+            break
+    return out
+
+
+def sched_smoke(checked: set) -> dict:
+    """The continuous scheduler on llama3-8b's smoke config, fp32, fused
+    MLP (B2): bench_serving's smoke trace on the card, every stream equal
+    to the static oracle's on the card and to the same replay on the CPU;
+    B2 launched once per layer and forward pass, every launch at a shape
+    phase 3 held (``checked``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_to
+    from repro_torch.serving import Engine, ServeConfig
+    cfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
+                              fused_mlp=True)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(SEED), "cpu")
+    reqs = smoke_trace(cfg.vocab)
+    scfg = ServeConfig(max_new_tokens=SCHED_SMOKE["new_tokens"],
+                       cache_len=SCHED_SMOKE["cache_len"])
+    knobs = dict(slots=SCHED_SMOKE["slots"],
+                 chunk_widths=SCHED_SMOKE["chunk_widths"],
+                 stop_token=SCHED_SMOKE["stop"])
+    _, cpu = replay_trace(Engine(model, params, scfg), reqs, **knobs)
+    card = Engine(model, tree_to(params, "cuda"), scfg)
+    reset_launches()
+    seen = {}
+    with recording_shapes(seen):
+        sched, got = replay_trace(card, reqs, **knobs)
+    launches = launch_counts()
+    passes = sched.metrics.prefill_chunks + sched.metrics.decode_steps
+    want = {**{k: 0 for k in launches},
+            "goma_fused_matmul": cfg.layers * passes}
+    if launches != want:
+        raise AssertionError(f"scheduler smoke launches {launches} != "
+                             f"{want} ({passes} forward passes)")
+    shapes = held_shapes(seen, launches, checked)
+    if got != cpu:
+        raise AssertionError(f"card streams {got} != CPU streams {cpu}")
+    oracle = Engine(model, card.params, ServeConfig(
+        cache_len=SCHED_SMOKE["cache_len"]))
+    for req in reqs:
+        want_tokens = oracle_tokens(oracle, req)
+        if got[req.req_id][0] != want_tokens:
+            raise AssertionError(f"request {req.req_id}: scheduler "
+                                 f"{got[req.req_id]} != static oracle "
+                                 f"{want_tokens}")
+    print(f"  streams (card == cpu == static oracle): {got}")
+    print(f"  forward passes {passes}, launches {launches}")
+    print(f"  launches by shape (each held in phase 3): {seen}")
+    return {"launches": launches, "shapes": shapes}
+
+
+def capture_emitted_logits(sched) -> dict:
+    """Record, for every token the scheduler emits, the logits row it was
+    sampled from: the last prefill chunk's row of the prompt's last token
+    for the first, the request's slot row of the decode for the rest.
+    Returns ({req_id: [row, ...]}, {req_id: its slot})."""
+    eng = sched.engine
+    last = {}
+    rows, slot_of = {}, {}
+
+    def prefill_chunk(cache, tokens, index):
+        last["prefill"] = (index, type(eng).prefill_chunk(eng, cache, tokens,
+                                                          index)[0])
+        return last["prefill"][1], cache
+
+    def decode_slots(cache, tokens, positions):
+        last["decode"] = type(eng).decode_slots(eng, cache, tokens,
+                                                positions)[0]
+        return last["decode"], cache
+
+    def on_token(req, tok):
+        mine = rows.setdefault(req.req_id, [])
+        slot = next(s for s in sched.slots.slots if s.req is req)
+        if not mine:
+            index, logits = last["prefill"]
+            mine.append(logits[0, req.prompt_len - 1 - index].clone())
+            slot_of[req.req_id] = slot.idx
+        else:
+            mine.append(last["decode"][slot.idx, -1].clone())
+
+    eng.prefill_chunk, eng.decode_slots = prefill_chunk, decode_slots
+    sched.on_token = on_token
+    return rows, slot_of
+
+
+def sched_full(smi: str, out: pathlib.Path | None, checked: set) -> dict:
+    """The continuous scheduler at llama3-8b's full width, bf16, fused
+    MLP on (the chains do not fuse: every MLP is three B1 launches and a
+    goma_combine), random weights made on the card: SCHED_FULL's trace
+    with exact launch counts, every launch at a shape phase 3 held, and
+    finite logits; a second replay, timed, with zero solver calls; each
+    request's token agreement with the static bf16 oracle (reported: bf16
+    rounding flips, see PATH_TOL), and as witnesses of where the streams
+    part, the same trace at one slot against the oracle (chunked against
+    whole-prompt prefill) and against the 8-slot streams (a decode of 8
+    rows against one of 1).  Then, with the weights in fp32, the whole
+    trace again: every emitted token's logits row within PATH_TOL of
+    scale of the teacher-forced static prefill of prompt + emitted tokens
+    at B=1, with slots reused.  With ``out``, one more bf16 replay runs
+    under the profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.solver import reset_solver_stats, solver_stats
+    from repro_torch.models import build_model
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving.sched import (ContinuousScheduler, SchedConfig,
+                                           TraceClock, TrafficConfig,
+                                           poisson_trace, replay)
+    cfg = dataclasses.replace(get_config("llama3-8b"), fused_mlp=True)
+    model = build_model(cfg)
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    trace = poisson_trace(TrafficConfig(
+        n_requests=SCHED_FULL["requests"],
+        arrival_rate=SCHED_FULL["arrival_rate"],
+        prompt_mix=SCHED_FULL["prompt_mix"],
+        max_new_tokens=SCHED_FULL["new_tokens"], vocab=cfg.vocab,
+        seed=SEED))
+    knobs = dict(slots=SCHED_FULL["slots"],
+                 chunk_widths=SCHED_FULL["chunk_widths"])
+    scfg = ServeConfig(max_new_tokens=SCHED_FULL["new_tokens"],
+                       cache_len=SCHED_FULL["cache_len"])
+    finite = watch_logits(model)
+    reset_launches()
+    seen = {}
+    with recording_shapes(seen):
+        sched, streams = replay_trace(Engine(model, params, scfg), trace,
+                                      **knobs)
+    counts = launch_counts()
+    del model._lm_logits        # watch_logits' wrapper: this run only
+    chunks, ticks = sched.metrics.prefill_chunks, sched.metrics.decode_steps
+    passes = chunks + ticks
+    want = {**{k: 0 for k in counts},
+            "goma_matmul": 3 * cfg.layers * passes,
+            "goma_combine": cfg.layers * passes}
+    if counts != want:
+        raise AssertionError(f"scheduler launches {counts} != {want} "
+                             f"({passes} forward passes)")
+    if len(finite) != passes or not all(bool(f) for f in finite):
+        raise AssertionError(f"non-finite logits or {len(finite)} passes "
+                             f"!= {passes}")
+    shapes = held_shapes(seen, counts, checked)
+    served = [streams[r.req_id][0] for r in trace]
+    if any(len(t) != r.max_new_tokens or min(t) < 0 or max(t) >= cfg.vocab
+           for t, r in zip(served, trace)):
+        raise AssertionError(f"bad streams {streams}")
+    # a second replay, timed, once every plan is memoized
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_solver_stats()
+    eng = Engine(model, params, scfg)
+    sched, again = replay_trace(eng, trace, **knobs)
+    torch.cuda.synchronize()
+    solves = solver_stats()["calls"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if again != streams or solves:
+        raise AssertionError(f"the timed replay made {solves} solver calls "
+                             f"or gave other streams")
+    summ = sched.metrics.summary()
+    t0 = time.perf_counter()
+    oracle = Engine(model, params, ServeConfig(
+        cache_len=SCHED_FULL["cache_len"]))
+    static = {req.req_id: oracle_tokens(oracle, req) for req in trace}
+    _, alone = replay_trace(Engine(model, params, scfg), trace,
+                            **{**knobs, "slots": 1})
+
+    def agreement(got: dict, want: dict) -> dict:
+        out = {}
+        for rid, w in want.items():
+            same = [a == b for a, b in zip(got[rid], w)]
+            out[rid] = {"equal": sum(same), "of": len(w),
+                        "leading": (same + [False]).index(False)}
+        return out
+
+    eight = {rid: t for rid, (t, _) in streams.items()}
+    agree = agreement(eight, static)
+    witness = {"one_slot_vs_static": agreement(
+                   {rid: t for rid, (t, _) in alone.items()}, static),
+               "eight_slots_vs_one_slot": agreement(
+                   eight, {rid: t for rid, (t, _) in alone.items()})}
+    print(f"  streams: {streams}")
+    print(f"  forward passes {passes} ({chunks} prefill chunks, {ticks} "
+          f"decode ticks), launches {counts}")
+    print(f"  launches by shape (each held in phase 3): {seen}")
+    print(f"  metrics: {summ}")
+    print(f"  tokens/s {summ['tokens_per_s']}, ttft p50/p95 "
+          f"{summ['ttft_p50_s']}/{summ['ttft_p95_s']} s, tpot p50 "
+          f"{summ['tpot_p50_s']} s, mean slot occupancy "
+          f"{summ['mean_slot_occupancy']}, ticks {summ['steps']}, peak "
+          f"memory {peak} GiB, solver calls {solves}")
+    for name, agr in {"static bf16 oracle": agree, **witness}.items():
+        parted = {rid: a["leading"] for rid, a in agr.items()
+                  if a["equal"] != a["of"]}
+        print(f"  token agreement, {name} (reported, not held): "
+              f"{len(agr) - len(parted)} of {len(agr)} streams equal; the "
+              f"others' leading equal tokens: {parted}")
+    print(f"  (static oracle and witnesses "
+          f"{time.perf_counter() - t0:.1f} s)")
+    if out is not None:
+        profile_run(lambda: replay_trace(Engine(model, params, scfg), trace,
+                                         **knobs), smi, out, "profile_sched")
+    del eng, sched, oracle
+
+    # fp32: the same weights, the same path, the same trace
+    t0 = time.perf_counter()
+    params32 = tree_float(params)
+    del params
+    free_device()
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model32 = build_model(cfg32)
+    clock = TraceClock()
+    sched = ContinuousScheduler(
+        Engine(model32, params32, scfg), SchedConfig(**knobs),
+        clock=clock.now)
+    rows, slot_of = capture_emitted_logits(sched)
+    results = replay(sched, trace, clock)
+    reused = len(trace) - len(set(slot_of.values()))
+    if reused <= 0:
+        raise AssertionError(f"fp32 replay reused no slot: {slot_of}")
+    errs = {}
+    by_id = {r.req_id: r for r in results}
+    for req in trace:
+        res = by_id[req.req_id]
+        seq = np.concatenate([req.tokens, res.tokens[:-1]])[None]
+        with torch.inference_mode():
+            want = model32.decode_step(
+                params32, model32.init_cache(1, seq.shape[1], "cuda"),
+                torch.as_tensor(seq, dtype=torch.int64, device="cuda"),
+                0)[0][0, req.prompt_len - 1:]
+        errs[req.req_id] = [close_to_scale(got, w, PATH_TOL)
+                            for got, w in zip(rows[req.req_id], want)]
+        if len(errs[req.req_id]) != len(res.tokens):
+            raise AssertionError(f"request {req.req_id}: "
+                                 f"{len(rows[req.req_id])} logits rows for "
+                                 f"{len(res.tokens)} tokens")
+    worst = max(max(e) for e in errs.values())
+    print(f"  fp32 ({time.perf_counter() - t0:.1f} s, {len(trace)} requests "
+          f"on {len(set(slot_of.values()))} slots, {reused} admissions into "
+          f"a used slot; slots {slot_of}): every emitted token's logits row "
+          f"vs the teacher-forced static prefill, largest max abs err "
+          f"{worst} (tol {PATH_TOL} x scale); per request: "
+          f"{ {rid: max(e) for rid, e in errs.items()} }")
+    return {"launches": counts, "shapes": shapes,
+            "serve": {"metrics": summ, "peak_memory_gib": peak,
+                      "forward_passes": passes, "solver_calls": solves,
+                      "oracle_agreement": agree, "witness": witness,
+                      "fp32_logits_err": errs, "fp32_slot_of": slot_of}}
 
 
 # device-kernel name fragments of the port's hand-written kernels
@@ -860,18 +1175,18 @@ PORT_KERNELS = {"goma": "goma_", "b1": "goma_matmul", "wkv6": "wkv6_kernel",
                 "ssd": "ssd_scan_kernel", "ssd_cb": "ssd_cb_kernel"}
 
 
-def profile_generate(eng, prompts, smi: str, out: pathlib.Path,
-                     name: str) -> None:
-    """One more generate under torch.profiler: device time by kernel,
-    the device's busy and idle shares of the wall time, and the port
-    kernels' shares, to out/<name>.{json,txt}."""
+def profile_run(fn, smi: str, out: pathlib.Path, name: str) -> None:
+    """One more run of fn (a generate, a scheduler replay) under
+    torch.profiler: device time by kernel, the device's busy and idle
+    shares of the wall time, and the port kernels' shares, to
+    out/<name>.{json,txt}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.generate(prompts)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only: the aten ops that launched them carry the
@@ -899,7 +1214,7 @@ def profile_generate(eng, prompts, smi: str, out: pathlib.Path,
     table = prof.key_averages().table(sort_by="self_cuda_time_total",
                                       row_limit=25)
     (out / f"{name}.txt").write_text(f"{smi}\n{table}\n")
-    print(f"  profiled generate: wall {wall_ms} ms, device busy {busy} ms "
+    print(f"  profiled {name}: wall {wall_ms} ms, device busy {busy} ms "
           f"(share {busy / wall_ms}), port kernels {port} ms")
     for r in rows[:8]:
         print(f"    {r['device_ms']:10.3f} ms {r['calls']:6d}  "
@@ -983,7 +1298,10 @@ def main() -> None:
                     objective=0.0, unfused_objective=0.0, solve_time_s=0.0)
                 b2_rows.append(check_b2(128, 128, 128, dtype, gen,
                                         plan=plan, timed=False))
-        for M in (4, 64):   # the smoke chain at decode and prefill
+        # the smoke chain at decode and prefill (phase 4), and at the
+        # scheduler's slots and chunk widths (phase 10)
+        for M in sorted({FULL["batch"], FULL["batch"] * FULL["prompt_len"],
+                         SCHED_SMOKE["slots"], *SCHED_SMOKE["chunk_widths"]}):
             b2_rows.append(check_b2(M, 128, 64, torch.float32, gen,
                                     timed=True))
         # the composition's combine: an odd fp32 shape, and every served
@@ -1013,6 +1331,7 @@ def main() -> None:
             check_ssd(FULL_SSD, 128, torch.float32, gen, decay=d,
                       timed=False) for d in ("mild", "strong")]
     checked = ({checked_key("goma_matmul", r) for r in b1_rows}
+               | {checked_key("goma_fused_matmul", r) for r in b2_rows}
                | {checked_key("goma_combine", r) for r in combine_rows}
                | {checked_key("wkv6_scan", r) for r in wkv_rows}
                | {checked_key("ssd_scan", r) for r in ssd_rows})
@@ -1054,6 +1373,17 @@ def main() -> None:
         runs["serve zamba2-2.7b full width"] = zamba["launches"]
         shapes["serve zamba2-2.7b full width"] = zamba["shapes"]
     free_device()
+    with phase("10 continuous scheduler on llama3-8b smoke on the card "
+               "(B2)"):
+        smoke = sched_smoke(checked)
+        runs["scheduler llama3-8b smoke"] = smoke["launches"]
+        shapes["scheduler llama3-8b smoke"] = smoke["shapes"]
+    with phase("11 continuous scheduler on llama3-8b at full width (B1, "
+               "goma_combine)"):
+        sched = sched_full(smi, out, checked)
+        runs["scheduler llama3-8b full width"] = sched["launches"]
+        shapes["scheduler llama3-8b full width"] = sched["shapes"]
+    free_device()
 
     b1 = next(r for r in b1_rows if r["shape"] == [4, 14336, 4096])
     b2 = next(r for r in b2_rows if r["shape"] == [4, 128, 64])
@@ -1068,7 +1398,7 @@ def main() -> None:
              "src/repro/kernels/goma_fused.py:131"),
             ("goma_combine (B2's combine, between B1 links)",
              "goma_combine", comb, "serve llama3-8b full width",
-             "goma_fused.cu", "src/repro/kernels/goma_fused.py:66"),
+             "goma_fused.cu", "src/repro/kernels/ops.py:102,156"),
             ("wkv6_scan (B3)", "wkv6_scan", wkv_full,
              "serve rwkv6-7b full width", "wkv6.cu",
              "src/repro/kernels/wkv6.py:78"),
@@ -1081,7 +1411,9 @@ def main() -> None:
              "device_vs_library") if fn == "goma_matmul" else
             ("ctas", "smem_bytes", "ctas_per_sm", "device_ms",
              "cuda_core_bound_ms", "bound_share", "device_bound_share")
-            if fn in ("wkv6_scan", "ssd_scan") else ())}
+            if fn in ("wkv6_scan", "ssd_scan") else
+            ("device_ms", "device_bound_share") if fn == "goma_combine"
+            else ())}
         kernels.append({
             **extra,
             "name": name, "route": "cuda",
@@ -1101,7 +1433,8 @@ def main() -> None:
              "b1_tiling_independence": tiling, "b2": b2_rows,
              "combine": combine_rows, "wkv6": wkv_rows, "ssd": ssd_rows,
              "serve_full": full["serve"], "serve_rwkv": rwkv["serve"],
-             "serve_zamba2": zamba["serve"], "launches": runs,
+             "serve_zamba2": zamba["serve"], "scheduler": sched["serve"],
+             "launches": runs,
              "shapes": shapes,
              "kernels": kernels,
              "seconds": time.perf_counter() - t_start}, indent=1))

@@ -81,8 +81,9 @@ def cta_slices(plan: TpuTilePlan) -> int:
 
     Why not one CTA per SM: a narrow slice reads B in narrow TMA rows (64
     bytes at 32 columns), and on the H100 the wide ones streamed faster
-    at every served shape even with fewer CTAs (PERF.md, B1's served
-    shapes)."""
+    at the served shapes even with fewer CTAs; the one exception measured
+    is the 128-row down projection of llama3-8b's scheduler, where 64
+    columns on 128 CTAs beat 128 on 64 (PERF.md, B1's served shapes)."""
     pm, pn, _ = plan.padded
     bn = plan.block[1]
     fits = [w for w in SLICE_WIDTHS if bn % w == 0]

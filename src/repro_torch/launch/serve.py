@@ -1,22 +1,33 @@
-"""Serving entry point of the port: one static batch through ``Engine.generate``.
+"""Serving entry point of the port.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
-        --fused-mlp [--smoke] [--device cpu]
+        --fused-mlp [--smoke] [--device cpu] [--continuous]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
         --scan-kernel [--smoke] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
         --scan-kernel --fused-mlp [--smoke] [--device cpu]
 
+Two modes:
+  * static (default): one batch of identical-arrival prompts through
+    ``Engine.generate``, run to completion.
+  * ``--continuous``: the continuous-batching scheduler
+    (``repro_torch.serving.sched``) replaying a synthetic Poisson trace —
+    chunked prefill interleaved with in-flight decode, slot recycling,
+    per-request streaming.  Dense archs only.
+
 Runs on the CUDA card unless ``--device cpu`` is given; without a card
 and without that flag it exits with an error instead of falling back.
 Weights are random, made on the device from a seeded torch.Generator.
-The continuous scheduler (``--continuous``) and the plan store come with
-later slices of the port.
+The plan store, the replica router, the prefix cache, speculative
+decoding and fault injection from the command line come with later
+slices of the port.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -24,6 +35,7 @@ import torch
 
 from ..configs import ARCHS, get_config
 from ..models import build_model
+from ..obs.registry import get_registry
 from ..serving import Engine, ServeConfig
 
 
@@ -45,6 +57,27 @@ def main(argv: list[str] | None = None) -> None:
                          "use_pallas_scan knob")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda)")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous-batching scheduler over a Poisson "
+                         "trace instead of one static batch")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="--continuous: synthetic trace length")
+    ap.add_argument("--arrival-rate", type=float, default=8.0,
+                    help="--continuous: Poisson arrivals per second")
+    ap.add_argument("--metrics-jsonl", default=None, metavar="PATH",
+                    help="--continuous: stream one JSON line per "
+                         "scheduler tick (registry counter snapshot + "
+                         "live metrics) to PATH")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="--continuous: admission-queue bound; overflow "
+                         "is shed with a terminal REJECTED result")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="--continuous: per-request deadline relative "
+                         "to arrival; requests still queued past it are "
+                         "EXPIRED instead of served late")
+    ap.add_argument("--watchdog-tick-s", type=float, default=None,
+                    help="--continuous: wall-clock budget per scheduler "
+                         "tick; slower ticks count sched.watchdog_trips")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
@@ -60,6 +93,9 @@ def main(argv: list[str] | None = None) -> None:
     model = build_model(cfg)
     params = model.init_params(
         torch.Generator(device=device).manual_seed(0), device)
+    if args.continuous:
+        _serve_continuous(args, cfg, model, params, device)
+        return
     eng = Engine(model, params, ServeConfig(
         max_new_tokens=args.new_tokens, temperature=args.temperature,
         cache_len=args.prompt_len + args.new_tokens + 8))
@@ -76,6 +112,62 @@ def main(argv: list[str] | None = None) -> None:
     print(f"{cfg.name} on {device}: generated {out.shape} in {dt:.2f}s "
           f"({tok_s:.1f} tok/s)")
     print(out[:, :12])
+
+
+def _serve_continuous(args, cfg, model, params, device) -> None:
+    from ..serving.sched import (BucketSpec, ContinuousScheduler,
+                                 SchedConfig, TraceClock, TrafficConfig,
+                                 poisson_trace, replay)
+    widths = (8, 32)
+    # every trace prompt is <= prompt_len; its bucket-padded prefill
+    # fits in ceil(prompt_len / max_width) full-width chunks
+    wmax = BucketSpec(widths).max_width
+    padded_cap = -(-args.prompt_len // wmax) * wmax
+    eng = Engine(model, params, ServeConfig(
+        max_new_tokens=args.new_tokens, temperature=args.temperature,
+        cache_len=padded_cap + args.new_tokens))
+    trace = poisson_trace(TrafficConfig(
+        n_requests=args.requests, arrival_rate=args.arrival_rate,
+        prompt_mix=((max(args.prompt_len // 4, 1), args.prompt_len, 1.0),),
+        max_new_tokens=args.new_tokens, vocab=cfg.vocab))
+    clock = TraceClock()
+    with contextlib.ExitStack() as stack:
+        on_tick = None
+        if args.metrics_jsonl:
+            metrics_fh = stack.enter_context(open(args.metrics_jsonl, "w"))
+            reg = get_registry()
+
+            def on_tick(s) -> None:
+                line = {"tick": s.metrics.steps, "t": clock.now(),
+                        "busy_slots": s.slots.n_busy,
+                        "queued": len(s.queue),
+                        "counters": reg.snapshot()}
+                metrics_fh.write(json.dumps(line, sort_keys=True) + "\n")
+
+        sched = ContinuousScheduler(
+            eng, SchedConfig(slots=args.batch, chunk_widths=widths,
+                             temperature=args.temperature,
+                             max_queue=args.max_queue,
+                             shed_on_full=args.max_queue is not None,
+                             default_deadline_s=args.deadline_s,
+                             watchdog_tick_s=args.watchdog_tick_s),
+            clock=clock.now, on_tick=on_tick)
+        results = replay(sched, trace, clock)
+    if args.metrics_jsonl:
+        print(f"metrics stream: {args.metrics_jsonl}")
+    summ = sched.metrics.summary()
+    print(f"{cfg.name} continuous on {device}: {len(results)} requests, "
+          f"{summ['total_generated_tokens']} tokens in "
+          f"{summ['elapsed_s']:.2f}s trace-time "
+          f"({summ['tokens_per_s']:.1f} tok/s)")
+    print(f"  ttft p50/p95: {summ['ttft_p50_s']:.3f}/"
+          f"{summ['ttft_p95_s']:.3f}s  tpot p50: {summ['tpot_p50_s']:.3f}s  "
+          f"occupancy: {summ['mean_slot_occupancy']:.2f}  "
+          f"chunks: {summ['prefill_chunks']}  ticks: {summ['steps']}")
+    if summ["rejected"] or summ["expired"] or summ["errored"]:
+        print(f"  degraded: rejected={summ['rejected']} "
+              f"expired={summ['expired']} errored={summ['errored']} "
+              f"(served {summ['served']}/{summ['requests']})")
 
 
 if __name__ == "__main__":

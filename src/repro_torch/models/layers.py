@@ -9,8 +9,7 @@ gated MLP runs through the GOMA-planned kernels when the config asks for
 the fused MLP.  ``pad_seq`` pads a sequence to a scan's chunk for the
 recurrent blocks (``rwkv.py``, ``ssm.py``).
 
-Not ported yet: sliding windows, softcaps, per-row slot-indexed cache
-writes and cross-attention.
+Not ported yet: sliding windows, softcaps and cross-attention.
 """
 from __future__ import annotations
 
@@ -80,13 +79,14 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              q_positions: torch.Tensor, kv_len: int | None = None
-              ) -> torch.Tensor:
+              q_positions: torch.Tensor,
+              kv_len: int | torch.Tensor | None = None) -> torch.Tensor:
     """Causal GQA attention in fp32.  q: (B, S, H, hd); k/v: (B, T, KV,
     hd); key t is visible to a query at position p when t <= p and
-    t < kv_len.  The softmax is taken as the reference's flash attention
-    takes it within one key block: exponentials of the shifted scores,
-    weighted sum, then one division by their total."""
+    t < kv_len, where ``kv_len`` is one length for every row or a (B,)
+    tensor of per-row lengths.  The softmax is taken as the reference's
+    flash attention takes it within one key block: exponentials of the
+    shifted scores, weighted sum, then one division by their total."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -97,7 +97,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if qpos.ndim == 1:
         qpos = qpos[None].expand(B, S)
     ok = kpos[None, None, :] <= qpos[:, :, None]          # (B, S, T)
-    if kv_len is not None:
+    if isinstance(kv_len, torch.Tensor):
+        ok = ok & (kpos[None, None, :] < kv_len[:, None, None])
+    elif kv_len is not None:
         ok = ok & (kpos < kv_len)[None, None, :]
     ok = ok[:, :, None, None, :]
     s = torch.where(ok, s, -torch.inf)
@@ -110,15 +112,32 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 
+def write_rows(cache: torch.Tensor, new: torch.Tensor,
+               index: torch.Tensor) -> None:
+    """Write each row's S new entries at its own position, in place, in
+    one indexed store: cache (B, T, ...), new (B, S, ...), index (B,).
+    A start is clamped into [0, T - S] so that the write fits, as
+    jax.lax.dynamic_update_slice clamps it in the reference (a freed
+    slot's stale position may lie past the end)."""
+    B, S = new.shape[:2]
+    start = torch.clamp(index, 0, cache.shape[1] - S)
+    cols = start[:, None] + torch.arange(S, device=index.device)
+    rows = torch.arange(B, device=index.device)[:, None]
+    cache[rows, cols] = new.to(cache.dtype)
+
+
 def attention_apply(p: Params, x: torch.Tensor, *, n_heads: int,
                     kv_heads: int, head_dim: int, rope_theta: float | None,
                     q_positions: torch.Tensor, cache: Params | None = None,
-                    cache_index: int | None = None):
+                    cache_index: int | torch.Tensor | None = None):
     """Returns (out, cache).  Cache layout: {"k": (B, T_max, KV, hd),
-    "v": ...}; ``cache_index`` is the scalar write position of a decode
-    step, None for a prefill that writes [0, S).  Unlike the reference,
-    the cache is updated in place (no second copy of it per step); the
-    returned cache is the same dict."""
+    "v": ...}.  ``cache_index`` is the write position of a decode step:
+    one int for every row, or a (B,) int64 tensor on the cache's device
+    with each row's own position (the continuous scheduler's slot-indexed
+    decode; attention then masks each row at its own valid length).  None
+    is a prefill that writes [0, S).  Unlike the reference, the cache is
+    updated in place (no second copy of it per step); the returned cache
+    is the same dict."""
     B, S, _ = x.shape
     q = dense(p["wq"], x).reshape(B, S, n_heads, head_dim)
     k = dense(p["wk"], x).reshape(B, S, kv_heads, head_dim)
@@ -127,7 +146,12 @@ def attention_apply(p: Params, x: torch.Tensor, *, n_heads: int,
         q = rope(q, q_positions, rope_theta)
         k = rope(k, q_positions, rope_theta)
     kv_len = None
-    if cache is not None:
+    if cache is not None and isinstance(cache_index, torch.Tensor):
+        write_rows(cache["k"], k, cache_index)
+        write_rows(cache["v"], v, cache_index)
+        k, v = cache["k"], cache["v"]
+        kv_len = cache_index + S                            # (B,)
+    elif cache is not None:
         start = 0 if cache_index is None else int(cache_index)
         cache["k"][:, start:start + S] = k.to(cache["k"].dtype)
         cache["v"][:, start:start + S] = v.to(cache["v"].dtype)

@@ -267,18 +267,33 @@ class Model:
         x = self._forward_stack(params, x, pos, caches=caches["layers"])
         return self._lm_logits(params, x[:, -1:]), caches
 
-    def decode_step(self, params, cache, tokens, index: int):
+    def decode_step(self, params, cache, tokens, index: int | torch.Tensor):
         """One cache-resident step: tokens (B, S) written at
-        [index, index + S) with causal attention over cache and chunk;
-        ``index`` is one scalar write position shared by all rows.  The
-        recurrent families take S == 1, as in the reference.
+        [index, index + S) with causal attention over cache and chunk.
+        ``index`` is one int write position shared by all rows, or a (B,)
+        integer tensor on the tokens' device with each row's own position
+        (the continuous scheduler's slot-indexed decode; each row is
+        masked at its own valid length, and the step reads nothing of it
+        back to the host).  The recurrent families take S == 1 and one
+        shared position, as in the reference.
         Returns (logits (B, S, V), cache), the cache updated in place."""
         B, S = tokens.shape
+        offs = torch.arange(S, device=tokens.device)
+        if isinstance(index, torch.Tensor):
+            if self.cfg.family != "dense":
+                raise ValueError(
+                    f"{self.cfg.name}: per-row positions need a pure KV "
+                    f"cache; the {self.cfg.family!r} family carries "
+                    f"recurrent state that the continuous scheduler "
+                    f"cannot slot (it serves dense models)")
+            index = index.to(torch.int64)
+            pos = index[:, None] + offs[None, :]
+        else:
+            index = int(index)
+            pos = (index + offs)[None].expand(B, S)
         x = self._embed_in(params, tokens)
-        pos = (int(index) + torch.arange(S, device=tokens.device)
-               )[None].expand(B, S)
         x = self._forward_stack(params, x, pos, caches=cache["layers"],
-                                cache_index=int(index))
+                                cache_index=index)
         return self._lm_logits(params, x), cache
 
     def init_cache(self, batch: int, max_len: int,

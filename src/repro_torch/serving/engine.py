@@ -2,13 +2,17 @@
 counterpart of the reference's ``serving/engine.py``).
 
 Static-shape KV caches, batched requests, and a stop-token / max-token
-policy, with the step-level ``new_cache`` / ``prefill_chunk`` primitives.
-PyTorch runs eagerly, so there is nothing to compile; the decode loop
+policy.  Beyond the static ``generate`` loop, the engine exposes its
+step-level primitives — ``new_cache`` / ``prefill_chunk`` /
+``decode_slots`` / ``insert_row`` / ``sample`` — which the
+continuous-batching scheduler (``serving.sched``) composes into an
+admission / prefill / decode loop.  PyTorch runs eagerly, so there is
+nothing to compile; caches are updated in place, and the decode loop
 keeps its bookkeeping on the device and synchronises with the host only
 for the sparse stop-token check and the final transfer.
 
-Not ported yet: ``decode_slots``, ``verify_step``, ``insert_row`` and the
-plan prewarm entry points (they come with the continuous scheduler).
+Not ported yet: ``verify_step`` (speculative decoding, with the router),
+and the plan store with its ``prewarm_*`` entry points.
 """
 from __future__ import annotations
 
@@ -28,19 +32,42 @@ class ServeConfig:
     cache_len: int = 512
 
 
+def gumbel_noise(shape, generator: torch.Generator,
+                 device: torch.device) -> torch.Tensor:
+    """Standard Gumbel noise of ``shape`` in fp32, drawn from
+    ``generator`` (which lives on ``device``)."""
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
 def gumbel_argmax(logits: torch.Tensor, temperature: float,
                   generator: torch.Generator) -> torch.Tensor:
     """Temperature sampling as Gumbel-max over the last axis.  The noise
     comes from a torch.Generator, so it cannot equal the reference's
     jax.random draws; it follows the same distribution."""
-    u = torch.rand(logits.shape, generator=generator,
-                   device=logits.device, dtype=torch.float32)
-    g = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    g = gumbel_noise(logits.shape, generator, logits.device)
     return torch.argmax(logits / temperature + g, dim=-1).to(torch.int32)
 
 
+def _insert_row(slot_cache: dict, row_cache: dict, slot: int) -> None:
+    """Copy a B=1 cache row into slot ``slot`` of the slot-batched cache,
+    in place (batch is axis 1 of every KV leaf)."""
+    for key, big in slot_cache.items():
+        small = row_cache[key]
+        if isinstance(big, dict):
+            _insert_row(big, small, slot)
+        else:
+            big[:, slot].copy_(small[:, 0])
+
+
 class Engine:
-    def __init__(self, model: Model, params: dict, cfg: ServeConfig):
+    def __init__(self, model: Model, params: dict, cfg: ServeConfig, *,
+                 plan_store=None):
+        if plan_store is not None:
+            raise NotImplementedError(
+                "the plan store is not ported yet (ROADMAP A1): plans are "
+                "solved at first dispatch and memoized in process")
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -57,6 +84,21 @@ class Engine:
         against an existing cache; returns (logits (B, W, V), cache)."""
         tokens = torch.as_tensor(tokens, device=self.device)
         return self.model.decode_step(self.params, cache, tokens, index)
+
+    def decode_slots(self, cache, tokens, positions):
+        """One decode step with per-row write positions (B,); rows are
+        fully independent — inactive slots may carry garbage, their
+        writes land at their own (clamped) positions only.  Returns
+        (logits (B, S, V), cache), the cache updated in place."""
+        tokens = torch.as_tensor(tokens, device=self.device)
+        positions = torch.as_tensor(positions, device=self.device)
+        return self.model.decode_step(self.params, cache, tokens, positions)
+
+    def insert_row(self, slot_cache, row_cache, slot: int):
+        """Graft a B=1 prefill cache into row ``slot`` of the slot cache,
+        in place; returns the slot cache."""
+        _insert_row(slot_cache, row_cache, slot)
+        return slot_cache
 
     def validate_capacity(self, prompt_len: int, max_new_tokens: int, *,
                           prefix_len: int = 0, lookahead: int = 0) -> None:

@@ -307,3 +307,81 @@ def test_cuda_scans_refuse_what_they_cannot_take(cuda_device):
                              for t in ssd_inputs(13, 1, 16, 1, 6, 16))
     with pytest.raises(ValueError):
         ssd_scan(xh, dt, a_log, Bm, Cm, chunk=8)    # P 6: not 16 or 64
+
+
+# ------------------------------------------------ the continuous scheduler
+def _smoke_model(**knobs):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
+                              fused_mlp=True, **knobs)
+    model = build_model(cfg)
+    return model, model.init_params(torch.Generator().manual_seed(0), "cpu")
+
+
+@pytest.mark.cuda
+def test_cuda_decode_step_per_row_matches_cpu(cuda_device):
+    """decode_step with per-row positions (the last one clamped, past the
+    end of the cache) on the card, through B2, against the same call on
+    the CPU."""
+    from repro_torch.kernels.goma_fused import goma_fused_matmul
+    from repro_torch.models.model import tree_to
+    model, params = _smoke_model()
+    rng = np.random.default_rng(3)
+    T = 32
+    cache = model.init_cache(4, T, device="cpu")
+    for k in ("k", "v"):
+        cache["layers"][k].copy_(torch.from_numpy(
+            rng.standard_normal(cache["layers"][k].shape).astype(np.float32)))
+    card_cache = tree_to(cache, cuda_device)
+    tokens = torch.from_numpy(rng.integers(0, model.cfg.vocab, (4, 3)))
+    index = torch.tensor([0, 5, 20, T - 1])
+    before = goma_fused_matmul.launches
+    with torch.inference_mode():
+        got, _ = model.decode_step(tree_to(params, cuda_device), card_cache,
+                                   tokens.to(cuda_device),
+                                   index.to(cuda_device))
+        want, _ = model.decode_step(params, cache, tokens, index)
+    torch.cuda.synchronize()
+    assert goma_fused_matmul.launches == before + model.cfg.layers
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-4, atol=1e-4)
+    for k in ("k", "v"):
+        np.testing.assert_allclose(_f32(card_cache["layers"][k]),
+                                   _f32(cache["layers"][k]), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_scheduler_runs_every_mlp_through_b1(cuda_device):
+    """A short replay whose chains do not fuse (d_ff 14336): three B1
+    launches and one goma_combine per layer and forward pass (prefill
+    chunks and decode ticks), and the CPU run's streams."""
+    from repro_torch.core.hopper_mapping import plan_fused_mlp
+    from repro_torch.models.model import tree_to
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving.sched import (ContinuousScheduler, SchedConfig,
+                                           TrafficConfig, poisson_trace)
+    model, params = _smoke_model(d_ff=14336)
+    cfg = model.cfg
+    assert not plan_fused_mlp(16, cfg.d_ff, cfg.d_model,
+                              dtype_bytes=4).fused
+    reqs = poisson_trace(TrafficConfig(
+        n_requests=4, prompt_mix=((3, 20, 1.0),), max_new_tokens=4,
+        vocab=cfg.vocab))
+
+    def run(p):
+        sched = ContinuousScheduler(
+            Engine(model, p, ServeConfig(cache_len=48)),
+            SchedConfig(slots=2, chunk_widths=(4, 16)))
+        return sched, {r.req_id: r.tokens for r in sched.run(reqs)}
+
+    before = (goma_matmul.launches, goma_combine.launches)
+    sched, got = run(tree_to(params, cuda_device))
+    torch.cuda.synchronize()
+    passes = sched.metrics.prefill_chunks + sched.metrics.decode_steps
+    assert (goma_matmul.launches - before[0],
+            goma_combine.launches - before[1]) == (
+        3 * cfg.layers * passes, cfg.layers * passes)
+    assert got == run(params)[1]

@@ -27,7 +27,7 @@ def test_modules_found():
     assert "repro_torch.kernels.ops" in MODULES
     assert "repro_torch.launch.serve" in MODULES
     for m in ("kernels.wkv6", "kernels.mamba2_ssd", "models.rwkv",
-              "models.ssm"):
+              "models.ssm", "serving.sched.scheduler"):
         assert f"repro_torch.{m}" in MODULES
     assert len(MODULES) >= 30
 
@@ -86,6 +86,23 @@ def test_serve_on_cpu_when_asked():
     assert "llama3-8b-smoke on cpu" in res.stdout
 
 
+def test_continuous_serve_without_a_card_exits_nonzero():
+    res = _run("", "-m", "repro_torch.launch.serve", "--arch", "llama3-8b",
+               "--smoke", "--continuous", "--fused-mlp", "--requests", "2")
+    assert res.returncode != 0
+    assert "--device cpu" in res.stderr
+
+
+def test_continuous_serve_on_cpu_when_asked():
+    res = _run("", "-m", "repro_torch.launch.serve", "--arch", "llama3-8b",
+               "--smoke", "--continuous", "--fused-mlp", "--requests", "4",
+               "--prompt-len", "12", "--new-tokens", "3", "--device", "cpu")
+    assert res.returncode == 0, res.stderr
+    assert "llama3-8b-smoke continuous on cpu: 4 requests, 12 tokens" \
+        in res.stdout
+    assert "ttft p50/p95" in res.stdout
+
+
 def test_init_params_on_a_missing_card_raises():
     code = ("import torch\n"
             "from repro_torch.configs import get_config\n"
@@ -105,7 +122,10 @@ COPIED = ["faults.py", "configs/__init__.py", "configs/base.py",
           *(f"core/{m}.py" for m in ("geometry", "hardware", "energy",
                                      "certificate", "edp", "timeloop_ref",
                                      "pareto", "solver", "fusion")),
-          "obs/registry.py", "obs/tracing.py"]
+          "obs/registry.py", "obs/tracing.py",
+          *(f"serving/sched/{m}.py" for m in ("__init__", "requests",
+                                              "buckets", "slots", "metrics",
+                                              "traffic"))]
 
 
 def test_copies_differ_from_the_reference_only_in_imports():
