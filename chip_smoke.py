@@ -39,6 +39,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -50,6 +51,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -117,6 +119,9 @@ WKV_STATE_TOL, SSD_STATE_TOL = 2e-3, 1e-3
 # the bf16 gap is measured and not held to a tolerance.
 PATH_TOL = 1e-3
 SEED = 0
+# ROADMAP C7: a row's bits in a launch of this many rows (the scheduler's
+# slots) against a launch of one
+C7_ROWS = 8
 
 
 @contextlib.contextmanager
@@ -330,6 +335,56 @@ def check_tiling_independence(gen) -> list[dict]:
                      "decompositions": [[list(blk), w]
                                         for blk, w, _ in outs],
                      "bitwise_equal": True})
+    return rows
+
+
+def check_row_independence(gen, store_dir: pathlib.Path) -> dict:
+    """ROADMAP C7: row 0 of a full-width bf16 input multiplied in a launch
+    of 8 rows and in one of 1, its output bits compared.  B1 at llama3-8b's
+    MLP gate/up and down through ``ops.gemm``, its plans read through a
+    plan store; and each ``torch.matmul`` projection of llama3-8b as the
+    model runs it: q, k, v and o in bf16, the LM head in the logits dtype
+    (fp32).  Reports which of them differ, with the device kernels each
+    launch ran; raises only when a launch fails."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import hopper_mapping
+    from repro_torch.kernels import ops
+    from repro_torch.planner import PlanStore
+    cfg = get_config("llama3-8b")
+    d, hd, bf16 = cfg.d_model, cfg.head_dim, torch.bfloat16
+    logits = getattr(torch, cfg.logits_dtype)
+    products = {"q": ("torch.matmul", cfg.n_heads * hd, d, bf16),
+                "k": ("torch.matmul", cfg.kv_heads * hd, d, bf16),
+                "v": ("torch.matmul", cfg.kv_heads * hd, d, bf16),
+                "o": ("torch.matmul", d, cfg.n_heads * hd, bf16),
+                "lm_head": ("torch.matmul", cfg.padded_vocab, d, logits),
+                "mlp gate/up": ("B1", cfg.d_ff, d, bf16),
+                "mlp down": ("B1", d, cfg.d_ff, bf16)}
+    store = PlanStore(store_dir)
+    hopper_mapping.set_plan_store(store)
+    rows = {}
+    try:
+        for name, (route, n, k, dtype) in products.items():
+            a = rand((C7_ROWS, k), bf16, gen).to(dtype)
+            w = rand((k, n), bf16, gen, k ** -0.5).to(dtype)
+            mm = ops.gemm if route == "B1" else torch.matmul
+            many = mm(a, w)[:1]
+            one = mm(a[:1], w)
+            torch.cuda.synchronize()
+            rows[name] = {
+                "route": route, "shape": [n, k], "dtype": dtype_name(dtype),
+                "rows": [C7_ROWS, 1],
+                "bitwise_equal": bool(torch.equal(many, one)),
+                "max_abs_diff": float((many.float() - one.float()).abs()
+                                      .max()),
+                "device_kernels": {
+                    m: sorted(device_kernels(lambda: mm(a[:m], w)))
+                    for m in (C7_ROWS, 1)}}
+    finally:
+        hopper_mapping.set_plan_store(None)
+    if store.puts == 0 or store.hits == 0:
+        raise AssertionError(f"B1's plans did not go through the store: "
+                             f"{store.stats()}")
     return rows
 
 
@@ -898,14 +953,14 @@ def smoke_trace(vocab: int) -> list:
             for i in range(SCHED_SMOKE["requests"])]
 
 
-def replay_trace(eng, reqs, **sched_cfg):
+def replay_trace(eng, reqs, arch_id=None, **sched_cfg):
     """The trace through a fresh ContinuousScheduler in virtual time;
     returns (scheduler, {req_id: (tokens, finish_reason)})."""
     from repro_torch.serving.sched import (ContinuousScheduler, SchedConfig,
                                            TraceClock, replay)
     clock = TraceClock()
     sched = ContinuousScheduler(eng, SchedConfig(**sched_cfg),
-                                clock=clock.now)
+                                arch_id=arch_id, clock=clock.now)
     results = replay(sched, reqs, clock)
     return sched, {r.req_id: (r.tokens, r.finish_reason) for r in results}
 
@@ -970,7 +1025,7 @@ def sched_smoke(checked: set) -> dict:
     print(f"  streams (card == cpu == static oracle): {got}")
     print(f"  forward passes {passes}, launches {launches}")
     print(f"  launches by shape (each held in phase 3): {seen}")
-    return {"launches": launches, "shapes": shapes}
+    return {"launches": launches, "shapes": shapes, "streams": got}
 
 
 def capture_emitted_logits(sched) -> dict:
@@ -1007,6 +1062,16 @@ def capture_emitted_logits(sched) -> dict:
     return rows, slot_of
 
 
+def sched_full_trace(vocab: int) -> list:
+    """Phase 11's Poisson trace (SCHED_FULL)."""
+    from repro_torch.serving.sched import TrafficConfig, poisson_trace
+    return poisson_trace(TrafficConfig(
+        n_requests=SCHED_FULL["requests"],
+        arrival_rate=SCHED_FULL["arrival_rate"],
+        prompt_mix=SCHED_FULL["prompt_mix"],
+        max_new_tokens=SCHED_FULL["new_tokens"], vocab=vocab, seed=SEED))
+
+
 def sched_full(smi: str, out: pathlib.Path | None, checked: set) -> dict:
     """The continuous scheduler at llama3-8b's full width, bf16, fused
     MLP on (the chains do not fuse: every MLP is three B1 launches and a
@@ -1027,18 +1092,12 @@ def sched_full(smi: str, out: pathlib.Path | None, checked: set) -> dict:
     from repro_torch.models import build_model
     from repro_torch.serving import Engine, ServeConfig
     from repro_torch.serving.sched import (ContinuousScheduler, SchedConfig,
-                                           TraceClock, TrafficConfig,
-                                           poisson_trace, replay)
+                                           TraceClock, replay)
     cfg = dataclasses.replace(get_config("llama3-8b"), fused_mlp=True)
     model = build_model(cfg)
     params = model.init_params(
         torch.Generator(device="cuda").manual_seed(SEED), "cuda")
-    trace = poisson_trace(TrafficConfig(
-        n_requests=SCHED_FULL["requests"],
-        arrival_rate=SCHED_FULL["arrival_rate"],
-        prompt_mix=SCHED_FULL["prompt_mix"],
-        max_new_tokens=SCHED_FULL["new_tokens"], vocab=cfg.vocab,
-        seed=SEED))
+    trace = sched_full_trace(cfg.vocab)
     knobs = dict(slots=SCHED_FULL["slots"],
                  chunk_widths=SCHED_FULL["chunk_widths"])
     scfg = ServeConfig(max_new_tokens=SCHED_FULL["new_tokens"],
@@ -1163,11 +1222,235 @@ def sched_full(smi: str, out: pathlib.Path | None, checked: set) -> dict:
           f"vs the teacher-forced static prefill, largest max abs err "
           f"{worst} (tol {PATH_TOL} x scale); per request: "
           f"{ {rid: max(e) for rid, e in errs.items()} }")
-    return {"launches": counts, "shapes": shapes,
+    return {"launches": counts, "shapes": shapes, "streams": streams,
             "serve": {"metrics": summ, "peak_memory_gib": peak,
                       "forward_passes": passes, "solver_calls": solves,
                       "oracle_agreement": agree, "witness": witness,
                       "fp32_logits_err": errs, "fp32_slot_of": slot_of}}
+
+
+# ------------------------------------------------------------- phase 12
+def sched_smoke_store(checked: set, phase10: dict,
+                      store_dir: pathlib.Path) -> dict:
+    """Phase 10's replay once more, its plans through a plan store: one
+    scheduler's enumerated prewarm fills a fresh store; a second one, on
+    the same store reopened with the process's plan caches flushed,
+    reads every plan back (no put, no miss, no solver call) and replays
+    the trace.  B2 launched once per layer and forward pass, every launch
+    at a shape phase 3 held; streams equal phase 10's and the card's
+    static oracle."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import hopper_mapping
+    from repro_torch.core.solver import reset_solver_stats, solver_stats
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_to
+    from repro_torch.planner import PlanStore
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving.sched import ContinuousScheduler, SchedConfig
+    cfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
+                              fused_mlp=True)
+    model = build_model(cfg)
+    params = tree_to(model.init_params(torch.Generator().manual_seed(SEED),
+                                       "cpu"), "cuda")
+    reqs = smoke_trace(cfg.vocab)
+    scfg = ServeConfig(max_new_tokens=SCHED_SMOKE["new_tokens"],
+                       cache_len=SCHED_SMOKE["cache_len"])
+    knobs = dict(slots=SCHED_SMOKE["slots"],
+                 chunk_widths=SCHED_SMOKE["chunk_widths"],
+                 stop_token=SCHED_SMOKE["stop"],
+                 prewarm_source="enumerated")
+    cold = PlanStore(store_dir)
+    ContinuousScheduler(Engine(model, params, scfg, plan_store=cold),
+                        SchedConfig(**knobs), arch_id="llama3-8b")
+    hopper_mapping.set_plan_store(None)
+    store = PlanStore(store_dir)
+    reset_solver_stats()
+    reset_launches()
+    seen = {}
+    with recording_shapes(seen):
+        sched, got = replay_trace(Engine(model, params, scfg,
+                                         plan_store=store),
+                                  reqs, arch_id="llama3-8b", **knobs)
+    launches = launch_counts()
+    solves = solver_stats()["calls"]
+    hopper_mapping.set_plan_store(None)
+    passes = sched.metrics.prefill_chunks + sched.metrics.decode_steps
+    want = {**{k: 0 for k in launches},
+            "goma_fused_matmul": cfg.layers * passes}
+    if launches != want:
+        raise AssertionError(f"scheduler smoke launches with the store "
+                             f"{launches} != {want} ({passes} passes)")
+    shapes = held_shapes(seen, launches, checked)
+    if solves or store.puts or store.misses or not cold.num_fused() \
+            or not store.hits:
+        raise AssertionError(f"the replay from the store made {solves} "
+                             f"solver calls: cold {cold.stats()}, warm "
+                             f"{store.stats()}")
+    if got != phase10["streams"]:
+        raise AssertionError(f"streams with the store {got} != phase 10's "
+                             f"{phase10['streams']}")
+    oracle = Engine(model, params, ServeConfig(
+        cache_len=SCHED_SMOKE["cache_len"]))
+    for req in reqs:
+        if got[req.req_id][0] != oracle_tokens(oracle, req):
+            raise AssertionError(f"request {req.req_id}: {got[req.req_id]}"
+                                 f" != the static oracle's")
+    print(f"  smoke replay from the store: streams == phase 10's == static "
+          f"oracle, launches {launches}, solver calls {solves}; cold store "
+          f"{cold.stats()}, warm store {store.stats()}")
+    return {"launches": launches, "shapes": shapes,
+            "store": {"cold": cold.stats(), "warm": store.stats(),
+                      "solver_calls": solves}}
+
+
+def sched_store_full(checked: set, phase11: dict,
+                     store_dir: pathlib.Path) -> dict:
+    """Phase 11's deployment served from a plan store.  A cold run: the
+    scheduler's enumerated prewarm for llama3-8b fills a fresh store with
+    every bucketed B1 tiling and fused chain, then the trace replays once
+    with no warm-up replay before it: zero solver calls and zero store
+    misses, streams equal to phase 11's, the launches per forward pass
+    of phase 11 and every one at a shape phase 3 held.  A second replay
+    on the same store, timed as phase 11's timed replay, gives the same
+    streams.  Then, with this run's device memory freed,
+    ``launch.serve --continuous --plan-db`` in a second process on the
+    same store and trace: it must print ``puts: 0`` and zero solver
+    calls."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import hopper_mapping
+    from repro_torch.core.solver import reset_solver_stats, solver_stats
+    from repro_torch.models import build_model
+    from repro_torch.obs.registry import get_registry
+    from repro_torch.planner import PlanStore
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving.sched import (ContinuousScheduler, SchedConfig,
+                                           TraceClock, replay)
+    cfg = dataclasses.replace(get_config("llama3-8b"), fused_mlp=True)
+    model = build_model(cfg)
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    trace = sched_full_trace(cfg.vocab)
+    scfg = ServeConfig(max_new_tokens=SCHED_FULL["new_tokens"],
+                       cache_len=SCHED_FULL["cache_len"])
+    store = PlanStore(store_dir)
+    failures = get_registry().get("sched.prewarm_failures")
+    reset_solver_stats()
+    clock = TraceClock()
+    t0 = time.perf_counter()
+    sched = ContinuousScheduler(
+        Engine(model, params, scfg, plan_store=store),
+        SchedConfig(slots=SCHED_FULL["slots"],
+                    chunk_widths=SCHED_FULL["chunk_widths"],
+                    prewarm_source="enumerated"),
+        arch_id="llama3-8b", clock=clock.now)
+    prewarm_s = time.perf_counter() - t0
+    prewarm = {"seconds": prewarm_s, "solver_calls": solver_stats()["calls"],
+               "prewarmed_plans": sched.prewarmed_plans,
+               "prewarmed_chains": sched.prewarmed_chains,
+               "store": store.stats()}
+    print(f"  cold prewarm: {prewarm_s} s, {sched.prewarmed_plans} GEMM "
+          f"tilings, {sched.prewarmed_chains} fused chains, "
+          f"{prewarm['solver_calls']} solver calls, store {store.stats()}")
+    reset_solver_stats()
+    misses, hits = store.misses, store.hits
+    torch.cuda.synchronize()
+    reset_launches()
+    seen = {}
+    with recording_shapes(seen):
+        results = replay(sched, trace, clock)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    solves = solver_stats()["calls"]
+    streams = {r.req_id: (r.tokens, r.finish_reason) for r in results}
+    shapes = held_shapes(seen, counts, checked)
+    if solves or store.misses != misses or \
+            get_registry().get("sched.prewarm_failures") != failures:
+        raise AssertionError(f"the first replay from the store made "
+                             f"{solves} solver calls and "
+                             f"{store.misses - misses} store misses, or a "
+                             f"prewarm failed: {store.stats()}")
+    # the virtual clock counts compute, so the number of ticks may differ
+    # from phase 11's by a few; the launches per forward pass may not
+    passes = sched.metrics.prefill_chunks + sched.metrics.decode_steps
+    want = {**{k: 0 for k in counts},
+            "goma_matmul": 3 * cfg.layers * passes,
+            "goma_combine": cfg.layers * passes}
+    if counts != want:
+        raise AssertionError(f"launches {counts} != {want} ({passes} "
+                             f"forward passes; phase 11: "
+                             f"{phase11['launches']})")
+    if streams != phase11["streams"]:
+        raise AssertionError(f"streams from the store {streams} != phase "
+                             f"11's {phase11['streams']}")
+    summ = sched.metrics.summary()
+    # a second replay, timed as phase 11's (the second of its trace, not
+    # recorded), on a fresh scheduler over the same store
+    reset_solver_stats()
+    torch.cuda.synchronize()
+    timed, again = replay_trace(
+        Engine(model, params, scfg, plan_store=store), trace,
+        arch_id="llama3-8b", slots=SCHED_FULL["slots"],
+        chunk_widths=SCHED_FULL["chunk_widths"],
+        prewarm_source="enumerated")
+    torch.cuda.synchronize()
+    hopper_mapping.set_plan_store(None)
+    if again != streams or solver_stats()["calls"] or \
+            store.misses != misses:
+        raise AssertionError(f"the second replay from the store gave other "
+                             f"streams or solved: {store.stats()}")
+    summ2 = timed.metrics.summary()
+    print(f"  first replay from the store: solver calls {solves}, store "
+          f"misses {store.misses - misses}, store hits {store.hits} "
+          f"({store.hits - hits} in the replay); streams == phase 11's; "
+          f"forward passes {passes}, launches {counts} (phase 11: "
+          f"{phase11['serve']['forward_passes']} passes, "
+          f"{phase11['launches']})")
+    print(f"  tokens/s {summ['tokens_per_s']}, ttft p50/p95 "
+          f"{summ['ttft_p50_s']}/{summ['ttft_p95_s']} s, tpot p50 "
+          f"{summ['tpot_p50_s']} s, ticks {summ['steps']} (phase 11's "
+          f"timed replay: tokens/s "
+          f"{phase11['serve']['metrics']['tokens_per_s']}, ttft p50 "
+          f"{phase11['serve']['metrics']['ttft_p50_s']} s, tpot p50 "
+          f"{phase11['serve']['metrics']['tpot_p50_s']} s)")
+    print(f"  second replay from the store (timed as phase 11's): tokens/s "
+          f"{summ2['tokens_per_s']}, ttft p50/p95 {summ2['ttft_p50_s']}/"
+          f"{summ2['ttft_p95_s']} s, tpot p50 {summ2['tpot_p50_s']} s, "
+          f"ticks {summ2['steps']}, solver calls 0")
+    del sched, timed, model, params, results
+    free_device()
+
+    lo, hi, _ = SCHED_FULL["prompt_mix"][0]
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve",
+           "--arch", "llama3-8b", "--fused-mlp", "--continuous",
+           "--plan-db", str(store_dir), "--prewarm-source", "enumerated",
+           "--batch", str(SCHED_FULL["slots"]),
+           "--chunk-widths", ",".join(map(str, SCHED_FULL["chunk_widths"])),
+           "--requests", str(SCHED_FULL["requests"]),
+           "--arrival-rate", str(SCHED_FULL["arrival_rate"]),
+           "--min-prompt-len", str(lo), "--prompt-len", str(hi),
+           "--new-tokens", str(SCHED_FULL["new_tokens"])]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         timeout=600)
+    warm_s = time.perf_counter() - t0
+    for line in res.stdout.splitlines():
+        print(f"  | {line}")
+    if res.returncode != 0 or res.stdout.count("'puts': 0") != 2 or \
+            "solver calls: 0" not in res.stdout:
+        raise AssertionError(f"the second process (rc {res.returncode}) "
+                             f"did not serve from the store with no put and "
+                             f"no solver call:\n{res.stderr[-4000:]}")
+    print(f"  second process: {warm_s} s, puts 0, solver calls 0")
+    return {"launches": counts, "shapes": shapes,
+            "serve": {"prewarm": prewarm, "metrics": summ,
+                      "metrics_second_replay": summ2,
+                      "forward_passes": passes,
+                      "replay_solver_calls": solves,
+                      "replay_store_misses": store.misses - misses,
+                      "store": store.stats(),
+                      "second_process": {"seconds": warm_s,
+                                         "stdout": res.stdout}}}
 
 
 # device-kernel name fragments of the port's hand-written kernels
@@ -1234,6 +1517,9 @@ def main() -> None:
         out.mkdir(parents=True, exist_ok=True)
     from repro_torch.kernels import _build
     t_start = time.perf_counter()
+    # fresh plan stores for phases 3 and 12, removed when the script ends
+    stores = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_plans_"))
+    atexit.register(shutil.rmtree, stores, True)
 
     with phase("1 device"):
         smi = subprocess.run(
@@ -1315,6 +1601,11 @@ def main() -> None:
         tiling = check_tiling_independence(gen)
         for r in b1_rows + b2_rows + combine_rows + tiling:
             print("  " + json.dumps(r))
+        c7 = check_row_independence(gen, stores / "c7")
+        print(f"  C7, row 0 at M = {C7_ROWS} vs M = 1, bitwise equal: "
+              f"{ {k: r['bitwise_equal'] for k, r in c7.items()} }")
+        for name, r in c7.items():
+            print(f"    {name}: {json.dumps(r)}")
         # the scans: an odd small shape (a chunk of 8, the last 32-token
         # sub-chunk padded), the full-width prefill shapes at chunk 128,
         # timed, and there at the mild and strong decays too
@@ -1384,6 +1675,19 @@ def main() -> None:
         runs["scheduler llama3-8b full width"] = sched["launches"]
         shapes["scheduler llama3-8b full width"] = sched["shapes"]
     free_device()
+    with phase("12 the plan store: phase 10 and phase 11 served from it "
+               "(B2; B1, goma_combine)"):
+        smoke_store = sched_smoke_store(checked, smoke, stores / "smoke")
+        runs["scheduler llama3-8b smoke, plan store"] = \
+            smoke_store["launches"]
+        shapes["scheduler llama3-8b smoke, plan store"] = \
+            smoke_store["shapes"]
+        store_full = sched_store_full(checked, sched, stores / "full")
+        runs["scheduler llama3-8b full width, plan store"] = \
+            store_full["launches"]
+        shapes["scheduler llama3-8b full width, plan store"] = \
+            store_full["shapes"]
+    free_device()
 
     b1 = next(r for r in b1_rows if r["shape"] == [4, 14336, 4096])
     b2 = next(r for r in b2_rows if r["shape"] == [4, 128, 64])
@@ -1434,6 +1738,9 @@ def main() -> None:
              "combine": combine_rows, "wkv6": wkv_rows, "ssd": ssd_rows,
              "serve_full": full["serve"], "serve_rwkv": rwkv["serve"],
              "serve_zamba2": zamba["serve"], "scheduler": sched["serve"],
+             "c7_row_independence": c7,
+             "plan_store": {"smoke": smoke_store["store"],
+                            "full_width": store_full["serve"]},
              "launches": runs,
              "shapes": shapes,
              "kernels": kernels,

@@ -30,19 +30,27 @@ Realizability constraints, as in the reference:
     fused plan whose strips do not fit one CTA's shared memory on Hopper
     is recorded as unfused (the three-GEMM composition runs instead).
 
-The plan-store read-through of the reference is not ported yet:
-``get_plan_store()`` returns None and every plan is solved in process
-(then memoized).
+Plan-store read-through, as in the reference: when a store is installed
+(``set_plan_store``, or lazily from ``$GOMA_PLAN_DB``), every tiling and
+chain solve first consults it (``planner.batch.cached_solve`` /
+``cached_solve_chain``); misses are solved once and written back, so a
+fleet of processes sharing one store converges to zero inline solves.
+Both realizability checks above run on the plan read from the store, as
+on a fresh solve; the z-walk re-solve goes through the store too.  The
+store's keys are the padded problem and the spec's physical parameters,
+so TPU plans (``spec=TPUV5E_LIKE, pad=MXU``) are the reference's own
+entries and Hopper plans sit beside them under keys of their own.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 
-from .fusion import GemmChain, solve_chain
+from .fusion import ChainSolveResult, GemmChain, solve_chain
 from .geometry import Gemm, Mapping
 from .hardware import TPUV5E_LIKE, AcceleratorSpec, Ert
-from .solver import solve
+from .solver import SolveResult, solve
 
 # The TPU's padding unit (its 128x128 MXU), for the differential check.
 MXU = 128
@@ -90,9 +98,56 @@ H100_LIKE = AcceleratorSpec(
 )
 
 
+# --- plan-store read-through ------------------------------------------------
+_PLAN_STORE = None
+_PLAN_STORE_RESOLVED = False
+
+
+def set_plan_store(store) -> None:
+    """Install (or clear, with None) the process-wide plan store.
+
+    Changing to a *different* store flushes both in-process plan caches,
+    so later lookups are served through (and recorded in) the new store;
+    re-installing the current store keeps the warm caches."""
+    global _PLAN_STORE, _PLAN_STORE_RESOLVED
+    changed = store is not _PLAN_STORE
+    _PLAN_STORE = store
+    _PLAN_STORE_RESOLVED = True
+    if changed:
+        plan_gemm_tiling.cache_clear()
+        _plan_fused_mlp.cache_clear()
+
+
 def get_plan_store():
-    """The plan store read-through is not ported yet: always None."""
-    return None
+    """The installed store, lazily resolved from $GOMA_PLAN_DB once."""
+    global _PLAN_STORE, _PLAN_STORE_RESOLVED
+    if not _PLAN_STORE_RESOLVED:
+        _PLAN_STORE_RESOLVED = True
+        if os.environ.get("GOMA_PLAN_DB", "").strip():
+            from ..planner.store import resolve_default_store
+            _PLAN_STORE = resolve_default_store()
+    return _PLAN_STORE
+
+
+def _solve(gemm: Gemm, hw: AcceleratorSpec,
+           allowed_walk01: tuple[str, ...] | None) -> SolveResult:
+    store = get_plan_store()
+    if store is not None:
+        from ..planner.batch import cached_solve
+        return cached_solve(gemm, hw, objective="energy",
+                            allowed_walk01=allowed_walk01, store=store,
+                            warm_start=True)
+    return solve(gemm, hw, objective="energy",
+                 allowed_walk01=allowed_walk01)
+
+
+def _solve_chain(chain: GemmChain, hw: AcceleratorSpec) -> ChainSolveResult:
+    store = get_plan_store()
+    if store is not None:
+        from ..planner.batch import cached_solve_chain
+        return cached_solve_chain(chain, hw, objective="energy",
+                                  allowed_walk01=("z",), store=store)
+    return solve_chain(chain, hw, objective="energy", allowed_walk01=("z",))
 
 
 def _pad_to(n: int, mult: int) -> int:
@@ -246,7 +301,8 @@ def plan_fused_mlp(M: int, FF: int, K: int, N2: int | None = None, *,
     The fused producer links are solved under ``allowed_walk01=("z",)``:
     the strips accumulate on chip across the k walk, so a non-z outer
     walk is not expressible.  On Hopper a fused plan whose fp32 strips
-    exceed one CTA's shared memory is recorded as unfused."""
+    exceed one CTA's shared memory is recorded as unfused, whether the
+    chain plan was solved here or read from the plan store."""
     return _plan_fused_mlp(M, FF, K, K if N2 is None else N2,
                            dtype_bytes=dtype_bytes, spec=spec, pad=pad)
 
@@ -257,7 +313,7 @@ def _plan_fused_mlp(M: int, FF: int, K: int, N2: int, *, dtype_bytes: int,
     chain, hw, padded = fused_mlp_problem(M, FF, K, N2,
                                           dtype_bytes=dtype_bytes,
                                           spec=spec, pad=pad)
-    res = solve_chain(chain, hw, objective="energy", allowed_walk01=("z",))
+    res = _solve_chain(chain, hw)
     cert = res.certificate
     fused = bool(cert.fused) and res.producer_mapping is not None
     bm = int(res.producer_mapping.L1[0]) if fused else 0
@@ -282,17 +338,18 @@ def plan_gemm_tiling(M: int, N: int, K: int, *, dtype_bytes: int = 2,
 
     M and N pad to ``pad`` (a multiple of the spec's spatial tile); K pads
     too once it reaches the unit.  Every tile is a divisor of its padded
-    dim, so the kernels never mask."""
+    dim, so the kernels never mask.  With a plan store installed the solve
+    is read through it (see set_plan_store)."""
     gemm, hw, padded = gemm_problem(M, N, K, dtype_bytes=dtype_bytes,
                                     spec=spec, pad=pad)
     pk = padded[2]
-    res = solve(gemm, hw, objective="energy")
+    res = _solve(gemm, hw, None)
     m = res.mapping
     if m is None:
         raise ValueError(f"no feasible {spec.name} mapping for {gemm}")
     if m.alpha01 != "z" and m.L1[2] < pk:
         # partial sums would round-trip HBM: not expressible in one launch
-        res = solve(gemm, hw, objective="energy", allowed_walk01=("z",))
+        res = _solve(gemm, hw, ("z",))
         m = res.mapping
     return plan_from_mapping(M, N, K, padded, m,
                              objective=res.certificate.objective,
@@ -303,4 +360,5 @@ __all__ = ["CTA_TILE", "FusedTilePlan", "H100_LIKE", "HOPPER_PAD", "MXU",
            "SMEM_BUDGET", "SMEM_BYTES", "STAGE_BYTES", "TPUV5E_LIKE",
            "TpuTilePlan", "fused_mlp_problem", "fused_smem_bytes",
            "gemm_problem", "get_plan_store", "plan_from_mapping",
-           "plan_fused_mlp", "plan_gemm_tiling", "scaled_spec"]
+           "plan_fused_mlp", "plan_gemm_tiling", "scaled_spec",
+           "set_plan_store"]

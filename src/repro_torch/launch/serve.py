@@ -1,7 +1,8 @@
 """Serving entry point of the port.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
-        --fused-mlp [--smoke] [--device cpu] [--continuous]
+        --fused-mlp [--smoke] [--device cpu] [--continuous] \
+        [--plan-db DIR --prewarm-source enumerated]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
         --scan-kernel [--smoke] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
@@ -18,9 +19,17 @@ Two modes:
 Runs on the CUDA card unless ``--device cpu`` is given; without a card
 and without that flag it exits with an error instead of falling back.
 Weights are random, made on the device from a seeded torch.Generator.
-The plan store, the replica router, the prefix cache, speculative
-decoding and fault injection from the command line come with later
-slices of the port.
+
+``--plan-db DIR`` (or ``$GOMA_PLAN_DB``) plans every kernel tiling of the
+deployment through a GOMA plan store before the first request: static
+serving prewarms through ``Engine.prewarm_plans``, ``--continuous``
+hands the store to the scheduler's bucketed prewarm.  The port prewarms
+from the hand extraction tables only (``--prewarm-source enumerated``);
+the reference's default, program capture, is not ported yet (ROADMAP
+A10) and is refused.  A second run on the same store prints ``puts: 0``
+and makes no solver call.  The replica router, the prefix cache,
+speculative decoding and fault injection from the command line come with
+later slices of the port.
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ import numpy as np
 import torch
 
 from ..configs import ARCHS, get_config
+from ..core.solver import reset_solver_stats, solver_stats
 from ..models import build_model
 from ..obs.registry import get_registry
 from ..serving import Engine, ServeConfig
@@ -55,6 +65,14 @@ def main(argv: list[str] | None = None) -> None:
                     help="run the prefill's RWKV-6 / Mamba2 chunked scans "
                          "through their kernels (B3, B4): the config's "
                          "use_pallas_scan knob")
+    ap.add_argument("--plan-db", default=None,
+                    help="GOMA plan database dir: prewarm kernel tilings "
+                         "through the store (also: $GOMA_PLAN_DB)")
+    ap.add_argument("--prewarm-source", default="capture",
+                    choices=("capture", "enumerated"),
+                    help="plan prewarm shape source: 'enumerated' uses "
+                         "the hand extraction tables; 'capture' (traced "
+                         "programs) is not ported yet (ROADMAP A10)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda)")
     ap.add_argument("--continuous", action="store_true",
@@ -64,6 +82,13 @@ def main(argv: list[str] | None = None) -> None:
                     help="--continuous: synthetic trace length")
     ap.add_argument("--arrival-rate", type=float, default=8.0,
                     help="--continuous: Poisson arrivals per second")
+    ap.add_argument("--chunk-widths", default="8,32",
+                    help="--continuous: comma-separated prefill chunk "
+                         "widths")
+    ap.add_argument("--min-prompt-len", type=int, default=None,
+                    help="--continuous: shortest trace prompt (default "
+                         "a quarter of --prompt-len); prompts are "
+                         "uniform up to --prompt-len")
     ap.add_argument("--metrics-jsonl", default=None, metavar="PATH",
                     help="--continuous: stream one JSON line per "
                          "scheduler tick (registry counter snapshot + "
@@ -93,12 +118,23 @@ def main(argv: list[str] | None = None) -> None:
     model = build_model(cfg)
     params = model.init_params(
         torch.Generator(device=device).manual_seed(0), device)
+    store = None
+    if args.plan_db:
+        from ..planner import PlanStore
+        store = PlanStore(args.plan_db)
+    reset_solver_stats()
     if args.continuous:
-        _serve_continuous(args, cfg, model, params, device)
+        _serve_continuous(args, cfg, model, params, device, store)
         return
     eng = Engine(model, params, ServeConfig(
         max_new_tokens=args.new_tokens, temperature=args.temperature,
-        cache_len=args.prompt_len + args.new_tokens + 8))
+        cache_len=args.prompt_len + args.new_tokens + 8), plan_store=store)
+    if store is not None:
+        t0 = time.perf_counter()
+        n = eng.prewarm_plans(args.arch, args.batch, args.prompt_len,
+                              source=args.prewarm_source)
+        print(f"plan prewarm: {n} GEMM tilings in "
+              f"{time.perf_counter() - t0:.2f}s  store={store.stats()}")
 
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab,
@@ -112,23 +148,33 @@ def main(argv: list[str] | None = None) -> None:
     print(f"{cfg.name} on {device}: generated {out.shape} in {dt:.2f}s "
           f"({tok_s:.1f} tok/s)")
     print(out[:, :12])
+    _print_planning(store)
 
 
-def _serve_continuous(args, cfg, model, params, device) -> None:
+def _print_planning(store) -> None:
+    """The store's counters and the process's solver calls, after
+    serving."""
+    if store is not None:
+        print(f"plan store: {store.stats()}")
+    print(f"solver calls: {solver_stats()['calls']}")
+
+
+def _serve_continuous(args, cfg, model, params, device, store) -> None:
     from ..serving.sched import (BucketSpec, ContinuousScheduler,
                                  SchedConfig, TraceClock, TrafficConfig,
                                  poisson_trace, replay)
-    widths = (8, 32)
+    widths = tuple(int(w) for w in args.chunk_widths.split(","))
+    lo = args.min_prompt_len or max(args.prompt_len // 4, 1)
     # every trace prompt is <= prompt_len; its bucket-padded prefill
     # fits in ceil(prompt_len / max_width) full-width chunks
     wmax = BucketSpec(widths).max_width
     padded_cap = -(-args.prompt_len // wmax) * wmax
     eng = Engine(model, params, ServeConfig(
         max_new_tokens=args.new_tokens, temperature=args.temperature,
-        cache_len=padded_cap + args.new_tokens))
+        cache_len=padded_cap + args.new_tokens), plan_store=store)
     trace = poisson_trace(TrafficConfig(
         n_requests=args.requests, arrival_rate=args.arrival_rate,
-        prompt_mix=((max(args.prompt_len // 4, 1), args.prompt_len, 1.0),),
+        prompt_mix=((lo, args.prompt_len, 1.0),),
         max_new_tokens=args.new_tokens, vocab=cfg.vocab))
     clock = TraceClock()
     with contextlib.ExitStack() as stack:
@@ -144,14 +190,21 @@ def _serve_continuous(args, cfg, model, params, device) -> None:
                         "counters": reg.snapshot()}
                 metrics_fh.write(json.dumps(line, sort_keys=True) + "\n")
 
+        t0 = time.perf_counter()
         sched = ContinuousScheduler(
             eng, SchedConfig(slots=args.batch, chunk_widths=widths,
                              temperature=args.temperature,
+                             prewarm_source=args.prewarm_source,
                              max_queue=args.max_queue,
                              shed_on_full=args.max_queue is not None,
                              default_deadline_s=args.deadline_s,
                              watchdog_tick_s=args.watchdog_tick_s),
+            arch_id=args.arch if store is not None else None,
             clock=clock.now, on_tick=on_tick)
+        if store is not None:
+            print(f"plan prewarm: {sched.prewarmed_plans} GEMM tilings, "
+                  f"{sched.prewarmed_chains} fused chains in "
+                  f"{time.perf_counter() - t0:.2f}s  store={store.stats()}")
         results = replay(sched, trace, clock)
     if args.metrics_jsonl:
         print(f"metrics stream: {args.metrics_jsonl}")
@@ -168,6 +221,7 @@ def _serve_continuous(args, cfg, model, params, device) -> None:
         print(f"  degraded: rejected={summ['rejected']} "
               f"expired={summ['expired']} errored={summ['errored']} "
               f"(served {summ['served']}/{summ['requests']})")
+    _print_planning(store)
 
 
 if __name__ == "__main__":

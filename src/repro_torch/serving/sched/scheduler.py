@@ -34,16 +34,23 @@ Where the port differs from the reference:
   ``torch.Generator``, seeded from ``(rng_seed, req_id, token_idx)``, so
   a stream does not depend on what else is scheduled; it follows the
   reference's distribution but not its ``jax.random`` bits.
-- Planning: GEMM plans are solved at first dispatch and memoized in
-  process (``core.hopper_mapping``); the plan store, its bucketed
-  prewarm and the per-phase plan resolution come with it (ROADMAP A1).
-  Every ``SchedConfig`` field is kept with its default; setting one whose
+- Planning: with a plan store and an ``arch_id``, construction prewarms
+  every bucketed GEMM tiling and fused chain through the store from the
+  hand extraction tables (``prewarm_source="enumerated"``), and each
+  phase resolves its plans once at first dispatch, so steady-state
+  traffic makes zero solver calls.  The reference's default source,
+  "capture", reads the shapes off traced programs; program capture is not
+  ported yet (ROADMAP A10), so a deployment that would prewarm through it
+  is refused.  ``mesh_chips > 1`` prewarms the store's sharded section;
+  serving itself runs on one device (a mesh is ROADMAP A13).  Every
+  ``SchedConfig`` field is kept with its default; setting one whose
   machinery is not ported raises NotImplementedError (``UNPORTED``).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
 import time
 from typing import Callable
 
@@ -62,6 +69,7 @@ from .requests import Request, RequestResult, RequestState
 from .slots import Slot, SlotManager
 
 _REG = get_registry()
+_LOG = logging.getLogger(__name__)
 
 # Families whose cache is a pure per-layer KV tensor with batch on axis 1
 # (slot grafting + slot-indexed writes assume that layout).  Recurrent
@@ -105,12 +113,24 @@ class SchedConfig:
     temperature: float = 0.0
     stop_token: int | None = None       # default; requests may override
     rng_seed: int = 0                   # per-request sampling streams
-    resolve_plans: bool = True          # per-tick plan resolution through a
-    #                                     plan store (not ported: UNPORTED)
-    prewarm_source: str = "capture"     # plan-store prewarm's shape source
-    #                                     (not ported: UNPORTED)
-    mesh_chips: int = 1                 # > 1: sharded plan prewarm
-    latency_slo_ns: float | None = None  # SLO-selected frontier points
+    resolve_plans: bool = True          # resolve tile plans per phase when
+    #                                     a plan store is installed
+    prewarm_source: str = "capture"     # "enumerated": the bucketed GEMM
+    #                                     groups from the hand extraction
+    #                                     tables (arch_id); "capture" (the
+    #                                     reference's traced programs) is
+    #                                     refused: UNPORTED
+    mesh_chips: int = 1                 # > 1: prewarm also fills the
+    #                                     store's sharded section with
+    #                                     joint (partition, tiling) plans
+    #                                     for every bucketed GEMM shape
+    latency_slo_ns: float | None = None  # per-GEMM latency SLO: prewarm
+    #                                     also builds every bucketed
+    #                                     shape's certified (energy,
+    #                                     delay) frontier and picks the
+    #                                     cheapest point meeting the SLO
+    #                                     into ``slo_points``; None keeps
+    #                                     the energy-optimal plan
     # --- degradation knobs ---
     shed_on_full: bool = False          # queue full: return a terminal
     #                                     REJECTED result instead of
@@ -128,31 +148,24 @@ class SchedConfig:
 
 
 # what a caller may set whose machinery is not ported yet: its name, a
-# test of (config, constructor arguments), and the ROADMAP item that
-# ports it
+# test of (config, constructor arguments and the engine's plan store),
+# and the ROADMAP item that ports it
 UNPORTED = (
-    ("SchedConfig.resolve_plans", lambda cfg, kw: not cfg.resolve_plans,
-     "A1 (the store's per-tick plan resolution)"),
-    ("SchedConfig.prewarm_source",
-     lambda cfg, kw: cfg.prewarm_source != "capture",
-     "A1 (the store's bucketed prewarm)"),
-    ("SchedConfig.mesh_chips > 1", lambda cfg, kw: cfg.mesh_chips > 1,
-     "A1 (the store's sharded plans) and A13 (multi-device)"),
-    ("SchedConfig.latency_slo_ns",
-     lambda cfg, kw: cfg.latency_slo_ns is not None,
-     "A1 (the store's Pareto frontiers)"),
+    ("SchedConfig.prewarm_source='capture'",
+     lambda cfg, kw: cfg.prewarm_source == "capture"
+     and (kw["arch_id"] is not None or kw["plan_store"] is not None),
+     "A10 (program capture); pass prewarm_source='enumerated' and an "
+     "arch_id"),
     ("SchedConfig.spec_width", lambda cfg, kw: cfg.spec_width is not None,
      "A8 (speculative decoding)"),
     ("prefix_cache", lambda cfg, kw: kw["prefix_cache"] is not None,
      "A8 (the KV prefix cache)"),
     ("drafter", lambda cfg, kw: kw["drafter"] is not None,
      "A8 (speculative decoding)"),
-    ("arch_id", lambda cfg, kw: kw["arch_id"] is not None,
-     "A1 (the enumerated plan prewarm)"),
     ("plan_groups / chain_groups",
      lambda cfg, kw: kw["plan_groups"] is not None
      or kw["chain_groups"] is not None,
-     "A1 and A8 (the router's shared prewarm)"),
+     "A8 (the router's shared prewarm)"),
 )
 
 
@@ -180,7 +193,7 @@ class ContinuousScheduler:
         ensure_supported_family(engine.model.cfg)
         kw = dict(prefix_cache=prefix_cache, drafter=drafter,
                   arch_id=arch_id, plan_groups=plan_groups,
-                  chain_groups=chain_groups)
+                  chain_groups=chain_groups, plan_store=engine.plan_store)
         for what, is_set, item in UNPORTED:
             if is_set(cfg, kw):
                 raise NotImplementedError(
@@ -213,6 +226,141 @@ class ContinuousScheduler:
         self._cur = np.zeros(cfg.slots, np.int64)
         self._pos = np.zeros(cfg.slots, np.int64)
         self.slot_cache = engine.new_cache(cfg.slots)
+        # plan-store integration: prewarm every bucketed GEMM tiling now
+        # so steady-state traffic never invokes the solver
+        self.arch_id = arch_id
+        self._plan_groups: dict[str, list[tuple[int, int, int]]] = {}
+        self._chain_groups: dict[str, list[tuple[int, int, int, int]]] = {}
+        self._resolved_groups: set[str] = set()
+        self.prewarmed_plans = 0
+        self.prewarmed_chains = 0
+        self.prewarmed_sharded = 0
+        self.prewarmed_pareto = 0
+        # SLO-selected frontier point per bucketed GEMM shape (filled at
+        # prewarm when cfg.latency_slo_ns is set; selection is fixed at
+        # construction, so steady-state traffic never re-solves).  The
+        # H100 spec's spatial tile is fixed, so the frontier is
+        # single-point and the selected mapping IS the energy-optimal one
+        # — token streams and stored plan identities are unchanged.
+        self.slo_points: dict[tuple[int, int, int], object] = {}
+        if arch_id is not None:
+            self.prewarmed_plans = self._prewarm(arch_id)
+
+    # ------------------------------------------------------------ plan DB
+    def _prewarm(self, arch_id: str) -> int:
+        """Best-effort bucketed prewarm from the extraction tables: any
+        one group failing to plan must not take down scheduler
+        construction — the serving loop still works (those shapes just
+        solve cold at first dispatch), so each failure is logged, counted
+        (``sched.prewarm_failures``) and skipped."""
+        from ...planner.batch import (bucketed_serving_fused_chain_groups,
+                                      bucketed_serving_plan_shape_groups)
+        if getattr(self.engine.model.cfg, "fused_mlp", False):
+            # a fused-MLP model dispatches one chain plan per bucket
+            # group instead of the per-GEMM gate/up/down tilings; chains
+            # derive from the engine's *own* model config so prewarm
+            # matches dispatch even for smoke/reduced variants
+            try:
+                self._chain_groups = bucketed_serving_fused_chain_groups(
+                    arch_id, slots=self.cfg.slots,
+                    chunk_widths=self.buckets.chunk_widths,
+                    cache_len=self.engine.cfg.cache_len,
+                    cfg=self.engine.model.cfg)
+            except Exception as e:
+                self._chain_groups = {}
+                _REG.inc("sched.prewarm_failures")
+                _LOG.warning("fused chain-group derivation failed "
+                             "(%s: %s); chains will solve at dispatch",
+                             type(e).__name__, e)
+            seen_chains: set[tuple[int, ...]] = set()
+            for group, chains in self._chain_groups.items():
+                fresh_chains = [c for c in chains
+                                if c not in seen_chains]
+                seen_chains.update(fresh_chains)
+                if not fresh_chains:
+                    continue
+                try:
+                    self.prewarmed_chains += \
+                        self.engine.prewarm_chains(fresh_chains)
+                except Exception as e:
+                    _REG.inc("sched.prewarm_failures")
+                    _LOG.warning("chain prewarm failed for group %r "
+                                 "(%s: %s); continuing", group,
+                                 type(e).__name__, e)
+        try:
+            self._plan_groups = bucketed_serving_plan_shape_groups(
+                arch_id, slots=self.cfg.slots,
+                chunk_widths=self.buckets.chunk_widths,
+                cache_len=self.engine.cfg.cache_len)
+        except Exception as e:
+            self._plan_groups = {}
+            _REG.inc("sched.prewarm_failures")
+            _LOG.warning("plan-group derivation failed (%s: %s); GEMMs "
+                         "will solve at dispatch", type(e).__name__, e)
+        planned = 0
+        seen: set[tuple[int, int, int]] = set()
+        for group, shapes in self._plan_groups.items():
+            fresh = [s for s in shapes if s not in seen]
+            seen.update(fresh)
+            if not fresh:
+                continue
+            try:
+                planned += self.engine.prewarm_shapes(fresh)
+            except Exception as e:
+                _REG.inc("sched.prewarm_failures")
+                _LOG.warning("plan prewarm failed for group %r (%s: %s); "
+                             "continuing", group, type(e).__name__, e)
+        if self.cfg.mesh_chips > 1 and self.engine.plan_store is not None:
+            # mesh deployment: the same deduped shape union also gets
+            # joint (mesh partition, per-chip tiling) plans in the
+            # store's sharded section
+            try:
+                self.prewarmed_sharded = self.engine.prewarm_sharded_shapes(
+                    sorted(seen), n_chips=self.cfg.mesh_chips)
+            except Exception as e:
+                _REG.inc("sched.prewarm_failures")
+                _LOG.warning("sharded prewarm failed (%s: %s); partitions "
+                             "will co-solve at first use",
+                             type(e).__name__, e)
+        if self.cfg.latency_slo_ns is not None:
+            # latency-SLO deployment: build every bucketed shape's
+            # certified (energy, delay) frontier and fix the per-shape
+            # point selection now
+            from ...core.pareto import select_frontier_point
+            if self.engine.plan_store is not None:
+                self.prewarmed_pareto = self.engine.prewarm_pareto_shapes(
+                    sorted(seen))
+            for s in sorted(seen):
+                try:
+                    res = self.engine.pareto_frontier(*s)
+                    p = select_frontier_point(res.points,
+                                              self.cfg.latency_slo_ns)
+                except Exception as e:
+                    _REG.inc("sched.prewarm_failures")
+                    _LOG.warning("frontier selection failed for %s "
+                                 "(%s: %s); energy-optimal plan kept",
+                                 s, type(e).__name__, e)
+                    continue
+                if p is not None:
+                    self.slo_points[s] = p
+            _REG.inc("sched.slo_points", len(self.slo_points))
+        return planned
+
+    def _resolve_plans(self, group: str) -> None:
+        """Resolve the tile plans one phase dispatches, once per group
+        (first dispatch).  After the constructor's prewarm these are all
+        in-process cache hits — the zero-solve steady state."""
+        if group in self._resolved_groups or \
+                not (self.cfg.resolve_plans and self._plan_groups):
+            return
+        from ...core.hopper_mapping import plan_fused_mlp, plan_gemm_tiling
+        for (M, N, K) in self._plan_groups.get(group, ()):
+            plan_gemm_tiling(M, N, K,
+                             dtype_bytes=self.engine.dispatch_dtype_bytes)
+        for (M, FF, K, N2) in self._chain_groups.get(group, ()):
+            plan_fused_mlp(M, FF, K, N2,
+                           dtype_bytes=self.engine.dispatch_dtype_bytes)
+        self._resolved_groups.add(group)
 
     # ---------------------------------------------------------- admission
     def submit(self, req: Request) -> RequestResult | None:
@@ -366,6 +514,7 @@ class ContinuousScheduler:
             if not self._prefill.chunks:
                 self._activate(self._prefill.slot, logits, chunk)
                 self._prefill = None
+            self._resolve_plans(f"chunk{chunk.width}")
 
         # 3. slot-indexed decode over the whole pool
         active = [s for s in self.slots.busy()
@@ -399,6 +548,7 @@ class ContinuousScheduler:
             _REG.inc("sched.decode_steps")
             _REG.inc("sched.padded_decode_rows",
                      len(self.slots) - len(active))
+            self._resolve_plans("decode")
 
         padded_rows = len(self.slots) - len(active) if decoded else 0
         if tick_sp:

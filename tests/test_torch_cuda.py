@@ -385,3 +385,42 @@ def test_cuda_scheduler_runs_every_mlp_through_b1(cuda_device):
             goma_combine.launches - before[1]) == (
         3 * cfg.layers * passes, cfg.layers * passes)
     assert got == run(params)[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 14336, 4096), (128, 4096, 14336)],
+                         ids=["8x14336x4096", "128x4096x14336"])
+def test_cuda_b1_with_a_store_plan_equals_the_in_process_plan(
+        cuda_device, shape, tmp_path):
+    """B1 through ops.gemm with its plan read back from a plan store (no
+    solve, no miss) gives the same bf16 bits as B1 under the plan solved
+    in process without a store."""
+    from repro_torch.core import hopper_mapping as hm
+    from repro_torch.core.solver import reset_solver_stats, solver_stats
+    from repro_torch.planner import PlanStore
+    M, N, K = shape
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    a = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    b = (torch.randn((K, N), generator=gen, device="cuda")
+         * K ** -0.5).to(torch.bfloat16)
+    hm.set_plan_store(None)
+    fresh = hm.plan_gemm_tiling(M, N, K, dtype_bytes=2)
+    want = ops.gemm(a, b, plan=fresh)
+    try:
+        hm.set_plan_store(PlanStore(tmp_path))
+        hm.plan_gemm_tiling(M, N, K, dtype_bytes=2)     # solve and put
+        store = PlanStore(tmp_path)
+        hm.set_plan_store(store)                        # flushes the cache
+        reset_solver_stats()
+        before = goma_matmul.launches
+        got = ops.gemm(a, b)
+        torch.cuda.synchronize()
+        assert goma_matmul.launches == before + 1
+        assert solver_stats()["calls"] == 0
+        assert store.misses == 0 and store.hits > 0
+        plan = hm.plan_gemm_tiling(M, N, K, dtype_bytes=2)
+        assert (plan.block, plan.grid_order, plan.walk, plan.objective) \
+            == (fresh.block, fresh.grid_order, fresh.walk, fresh.objective)
+        assert torch.equal(got, want)
+    finally:
+        hm.set_plan_store(None)

@@ -27,7 +27,8 @@ def test_modules_found():
     assert "repro_torch.kernels.ops" in MODULES
     assert "repro_torch.launch.serve" in MODULES
     for m in ("kernels.wkv6", "kernels.mamba2_ssd", "models.rwkv",
-              "models.ssm", "serving.sched.scheduler"):
+              "models.ssm", "serving.sched.scheduler", "planner.store",
+              "planner.batch", "planner.cli", "plan", "dist.mesh_solve"):
         assert f"repro_torch.{m}" in MODULES
     assert len(MODULES) >= 30
 
@@ -122,6 +123,9 @@ COPIED = ["faults.py", "configs/__init__.py", "configs/base.py",
           *(f"core/{m}.py" for m in ("geometry", "hardware", "energy",
                                      "certificate", "edp", "timeloop_ref",
                                      "pareto", "solver", "fusion")),
+          "core/dist_mapping.py", "core/workloads.py",
+          "dist/__init__.py", "dist/mesh_solve.py",
+          "planner/manifest.py", "planner/store.py",
           "obs/registry.py", "obs/tracing.py",
           *(f"serving/sched/{m}.py" for m in ("__init__", "requests",
                                               "buckets", "slots", "metrics",

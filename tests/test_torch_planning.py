@@ -133,4 +133,34 @@ def test_h100_spec_is_per_cta():
     assert spec.fixed_spatial == (hm.CTA_TILE, hm.CTA_TILE, 1)
     assert spec.num_pe == hm.CTA_TILE * hm.CTA_TILE
     assert hm.scaled_spec(4).sram_words == spec.sram_words // 4
+
+
+def test_plan_store_read_through_from_env(tmp_path, monkeypatch):
+    """With no store installed, get_plan_store resolves $GOMA_PLAN_DB once;
+    plans then solve through that store and a second resolution in a
+    fresh process state reads them back with no solve."""
+    from repro_torch.core.solver import reset_solver_stats, solver_stats
+    monkeypatch.setattr(hm, "_PLAN_STORE", None)
+    monkeypatch.setattr(hm, "_PLAN_STORE_RESOLVED", False)
+    monkeypatch.delenv("GOMA_PLAN_DB", raising=False)
     assert hm.get_plan_store() is None
+    monkeypatch.setattr(hm, "_PLAN_STORE_RESOLVED", False)
+    monkeypatch.setenv("GOMA_PLAN_DB", str(tmp_path))
+    hm.plan_gemm_tiling.cache_clear()
+    try:
+        store = hm.get_plan_store()
+        assert store is not None and store.root == tmp_path
+        cold = hm.plan_gemm_tiling(96, 160, 200, dtype_bytes=4)
+        assert store.puts > 0 and store.misses > 0
+        monkeypatch.setattr(hm, "_PLAN_STORE", None)
+        monkeypatch.setattr(hm, "_PLAN_STORE_RESOLVED", False)
+        hm.plan_gemm_tiling.cache_clear()
+        reset_solver_stats()
+        warm = hm.plan_gemm_tiling(96, 160, 200, dtype_bytes=4)
+        again = hm.get_plan_store()
+        assert again is not store and again.puts == 0 and again.hits > 0
+        assert solver_stats()["calls"] == 0
+        assert (warm.block, warm.grid_order, warm.walk, warm.objective) \
+            == (cold.block, cold.grid_order, cold.walk, cold.objective)
+    finally:
+        hm.plan_gemm_tiling.cache_clear()

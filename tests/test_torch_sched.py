@@ -4,7 +4,7 @@ weights (the reference's init_params moved over with params_from_jax),
 slot-indexed decode logits within 1e-4, token streams equal to the JAX
 scheduler's and to the port's static oracle, and the scheduler's own
 contracts (zero steady-state solves, fault isolation, sampling streams,
-refusals)."""
+refusals).  The plan store's scheduler tests are in test_torch_store.py."""
 import collections
 import dataclasses
 
@@ -394,27 +394,17 @@ def test_capacity_validation(pair):
 
 
 UNPORTED_CASES = {
-    "SchedConfig.mesh_chips > 1": ({"mesh_chips": 2}, {}),
-    "SchedConfig.latency_slo_ns": ({"latency_slo_ns": 1e6}, {}),
+    "SchedConfig.prewarm_source='capture'": ({}, {"arch_id": "llama3-8b"}),
     "SchedConfig.spec_width": ({"spec_width": 4}, {}),
     "prefix_cache": ({}, {"prefix_cache": object()}),
     "drafter": ({}, {"drafter": object()}),
-    "arch_id": ({}, {"arch_id": "llama3-8b"}),
     "plan_groups / chain_groups": ({}, {"plan_groups": {}}),
-    "SchedConfig.resolve_plans": ({"resolve_plans": False}, {}),
-    "SchedConfig.prewarm_source": ({"prewarm_source": "enumerate"}, {}),
 }
 
 
 @pytest.mark.parametrize("what,item", [(w, i) for w, _, i in UNPORTED])
 def test_unported_settings_raise(pair, what, item):
     cfg_kw, kw = UNPORTED_CASES[what]
-    with pytest.raises(NotImplementedError, match=item[:2]):
+    with pytest.raises(NotImplementedError, match=item[:3]):
         ContinuousScheduler(_engine(pair), SchedConfig(**SCHED, **cfg_kw),
                             **kw)
-
-
-def test_engine_plan_store_is_refused(pair):
-    _, _, tmodel, tparams = pair
-    with pytest.raises(NotImplementedError, match="A1"):
-        Engine(tmodel, tparams, ServeConfig(), plan_store=object())
