@@ -19,7 +19,19 @@ one's launch counts:
   full width, with the prefill's WKV6 scans through B3;
 - ``zamba2-2.7b``: the smoke config (card tokens == CPU tokens) and the
   full width, with the prefill's Mamba2 scans through B4 and the shared
-  block's MLP through B1 and ``goma_combine``.
+  block's MLP through B1 and ``goma_combine``;
+- the MoE family (phase 13): the ``deepseek-moe-16b`` and
+  ``granite-moe-1b-a400m`` smoke configs (card == CPU, both dispatches,
+  and behind the scheduler), ``deepseek-moe-16b`` at full width
+  statically and behind the scheduler with no GOMA kernel launched, and
+  its fp32 gate at 4 layers;
+- scale-out (phase 14) on ``llama3-8b``: ``spec_generate`` with an
+  n-gram and a model drafter, the scheduler with speculative decoding
+  and with a KV prefix cache, the replica router (its fleet planned by
+  one donor prewarm with zero solver calls, and a replica killed
+  mid-trace) on the smoke config, card == CPU == static oracle; at full
+  width two replicas with prefix cache and speculative decoding, B1
+  and ``goma_combine`` at held shapes, and the fp32 gate.
 
 Imports nothing of JAX and nothing of the reference package.
 
@@ -32,7 +44,8 @@ device time by kernel and the device's busy and idle shares go to
 ``DIR/profile_serve.{json,txt}`` (llama3-8b),
 ``DIR/profile_serve_rwkv.{json,txt}`` and
 ``DIR/profile_serve_zamba2.{json,txt}``, and one more scheduler replay
-to ``DIR/profile_sched.{json,txt}``.  Any failed phase raises and
+to ``DIR/profile_sched.{json,txt}``; phase 13's profiled MoE replay
+(device only) goes to ``DIR/profile_sched_moe.{json,txt}``.  Any failed phase raises and
 ends the script with a non-zero code; without a CUDA card it prints no
 result.
 """
@@ -122,6 +135,35 @@ SEED = 0
 # ROADMAP C7: a row's bits in a launch of this many rows (the scheduler's
 # slots) against a launch of one
 C7_ROWS = 8
+# the MoE family (phase 13): both smoke configs, statically (each
+# dispatch) and behind the scheduler on phase 10's trace; deepseek-moe-16b
+# at its published widths (arXiv:2401.06066), statically at FULL's batch,
+# prompt and new tokens and behind the scheduler on phase 11's deployment
+# and trace, and its fp32 gate at full width and this depth (the full
+# depth's fp32 weights, about 68 GB, leave no room)
+MOE_SMOKE = ("deepseek-moe-16b", "granite-moe-1b-a400m")
+MOE_ARCH, MOE_GATE_LAYERS = "deepseek-moe-16b", 4
+# scale-out (phase 14) on llama3-8b's smoke config, fp32, on phase 10's
+# deployment: spec_generate on prompts of 16 tokens with the width ladder
+# 2, 4, 8, the scheduler at window width 4, a shared prefix of 32 tokens
+# in front of phase 10's prompts for the prefix cache and the router
+SPEC_SMOKE = dict(prompts=3, prompt_len=16, new_tokens=16,
+                  widths=(2, 4, 8), spec_width=4, prefix_len=32)
+# the smoke chain's rows B2 runs at on those paths: a model drafter's
+# first catch-up chunk (prompt + first token), its later ones (1 to 8
+# accepted tokens) and its steps (1), the ladder's windows, the target's
+# prefill, the scheduler's chunks, decode and verify (slots x width)
+SPEC_SMOKE_ROWS = tuple(sorted({
+    *range(1, max(SPEC_SMOKE["widths"]) + 1), SPEC_SMOKE["prompt_len"],
+    SPEC_SMOKE["prompt_len"] + 1, *SCHED_SMOKE["chunk_widths"],
+    SCHED_SMOKE["slots"], SCHED_SMOKE["slots"] * SPEC_SMOKE["spec_width"]}))
+# ... and at full width, llama3-8b with the fused MLP: 2 replicas of phase
+# 11's deployment over phase 11's trace with a shared prefix of 128
+# tokens in front of every prompt (prompts of 144-328 tokens pad to 384 at
+# most, so the cache holds 384 + 16), a prefix cache of 1 GiB and the
+# n-gram drafter at width 4 (verify windows of 8 x 4 = 32 rows)
+SCALEOUT_FULL = dict(replicas=2, prefix_len=128, spec_width=4,
+                     cache_len=400, prefix_mib=1024)
 
 
 @contextlib.contextmanager
@@ -953,14 +995,16 @@ def smoke_trace(vocab: int) -> list:
             for i in range(SCHED_SMOKE["requests"])]
 
 
-def replay_trace(eng, reqs, arch_id=None, **sched_cfg):
+def replay_trace(eng, reqs, arch_id=None, prefix_cache=None, drafter=None,
+                 **sched_cfg):
     """The trace through a fresh ContinuousScheduler in virtual time;
     returns (scheduler, {req_id: (tokens, finish_reason)})."""
     from repro_torch.serving.sched import (ContinuousScheduler, SchedConfig,
                                            TraceClock, replay)
     clock = TraceClock()
     sched = ContinuousScheduler(eng, SchedConfig(**sched_cfg),
-                                arch_id=arch_id, clock=clock.now)
+                                arch_id=arch_id, clock=clock.now,
+                                prefix_cache=prefix_cache, drafter=drafter)
     results = replay(sched, reqs, clock)
     return sched, {r.req_id: (r.tokens, r.finish_reason) for r in results}
 
@@ -1028,38 +1072,69 @@ def sched_smoke(checked: set) -> dict:
     return {"launches": launches, "shapes": shapes, "streams": got}
 
 
-def capture_emitted_logits(sched) -> dict:
-    """Record, for every token the scheduler emits, the logits row it was
-    sampled from: the last prefill chunk's row of the prompt's last token
-    for the first, the request's slot row of the decode for the rest.
-    Returns ({req_id: [row, ...]}, {req_id: its slot})."""
-    eng = sched.engine
-    last = {}
-    rows, slot_of = {}, {}
+def capture_emitted_logits(model, scheds_of: dict):
+    """Record, for every token a scheduler or a fleet of them emits, the
+    logits row it was read off: the last prefill chunk's row of the
+    prompt's last token for the first, the request's slot row of the
+    decode or verify window, at the token's place in the window, for the
+    rest.  Wraps ``model.decode_step`` (a prefill chunk has an int index,
+    a decode or verify step a tensor of positions; ``del
+    model.decode_step`` undoes it); ``scheds_of["scheds"]`` are the
+    schedulers whose slots to search.  Returns ({req_id: [row, ...]},
+    {req_id: its slot}, the on_token callback to install)."""
+    step = type(model).decode_step
+    last = {"window": 0}
+    rows, slot_of, place = {}, {}, {}
 
-    def prefill_chunk(cache, tokens, index):
-        last["prefill"] = (index, type(eng).prefill_chunk(eng, cache, tokens,
-                                                          index)[0])
-        return last["prefill"][1], cache
-
-    def decode_slots(cache, tokens, positions):
-        last["decode"] = type(eng).decode_slots(eng, cache, tokens,
-                                                positions)[0]
-        return last["decode"], cache
+    def decode_step(params, cache, tokens, index):
+        logits, cache = step(model, params, cache, tokens, index)
+        if isinstance(index, torch.Tensor):
+            last["window"] += 1
+            last["decode"] = logits
+        else:
+            last["prefill"] = (index, logits)
+        return logits, cache
 
     def on_token(req, tok):
         mine = rows.setdefault(req.req_id, [])
-        slot = next(s for s in sched.slots.slots if s.req is req)
+        slot = next(s for sched in scheds_of["scheds"]
+                    for s in sched.slots.slots if s.req is req)
         if not mine:
             index, logits = last["prefill"]
             mine.append(logits[0, req.prompt_len - 1 - index].clone())
             slot_of[req.req_id] = slot.idx
-        else:
-            mine.append(last["decode"][slot.idx, -1].clone())
+            return
+        window, j = place.get(req.req_id, (None, -1))
+        j = j + 1 if window == last["window"] else 0
+        place[req.req_id] = (last["window"], j)
+        mine.append(last["decode"][slot.idx, j].clone())
 
-    eng.prefill_chunk, eng.decode_slots = prefill_chunk, decode_slots
-    sched.on_token = on_token
-    return rows, slot_of
+    model.decode_step = decode_step
+    return rows, slot_of, on_token
+
+
+def teacher_forced_errs(model, params, trace, results, rows) -> dict:
+    """Every emitted token's logits row (``rows``, by request) against
+    the static B=1 prefill of prompt + emitted tokens, teacher-forced:
+    each within PATH_TOL of scale, one row per token.  Returns the max
+    abs errors by request."""
+    errs = {}
+    by_id = {r.req_id: r for r in results}
+    for req in trace:
+        res = by_id[req.req_id]
+        seq = np.concatenate([req.tokens, res.tokens[:-1]])[None]
+        with torch.inference_mode():
+            want = model.decode_step(
+                params, model.init_cache(1, seq.shape[1], "cuda"),
+                torch.as_tensor(seq, dtype=torch.int64, device="cuda"),
+                0)[0][0, req.prompt_len - 1:]
+        errs[req.req_id] = [close_to_scale(got, w, PATH_TOL)
+                            for got, w in zip(rows[req.req_id], want)]
+        if len(errs[req.req_id]) != len(res.tokens):
+            raise AssertionError(f"request {req.req_id}: "
+                                 f"{len(rows[req.req_id])} logits rows for "
+                                 f"{len(res.tokens)} tokens")
+    return errs
 
 
 def sched_full_trace(vocab: int) -> list:
@@ -1191,30 +1266,18 @@ def sched_full(smi: str, out: pathlib.Path | None, checked: set) -> dict:
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     model32 = build_model(cfg32)
     clock = TraceClock()
+    holder = {}
+    rows, slot_of, on_token = capture_emitted_logits(model32, holder)
     sched = ContinuousScheduler(
         Engine(model32, params32, scfg), SchedConfig(**knobs),
-        clock=clock.now)
-    rows, slot_of = capture_emitted_logits(sched)
+        clock=clock.now, on_token=on_token)
+    holder["scheds"] = [sched]
     results = replay(sched, trace, clock)
+    del model32.decode_step
     reused = len(trace) - len(set(slot_of.values()))
     if reused <= 0:
         raise AssertionError(f"fp32 replay reused no slot: {slot_of}")
-    errs = {}
-    by_id = {r.req_id: r for r in results}
-    for req in trace:
-        res = by_id[req.req_id]
-        seq = np.concatenate([req.tokens, res.tokens[:-1]])[None]
-        with torch.inference_mode():
-            want = model32.decode_step(
-                params32, model32.init_cache(1, seq.shape[1], "cuda"),
-                torch.as_tensor(seq, dtype=torch.int64, device="cuda"),
-                0)[0][0, req.prompt_len - 1:]
-        errs[req.req_id] = [close_to_scale(got, w, PATH_TOL)
-                            for got, w in zip(rows[req.req_id], want)]
-        if len(errs[req.req_id]) != len(res.tokens):
-            raise AssertionError(f"request {req.req_id}: "
-                                 f"{len(rows[req.req_id])} logits rows for "
-                                 f"{len(res.tokens)} tokens")
+    errs = teacher_forced_errs(model32, params32, trace, results, rows)
     worst = max(max(e) for e in errs.values())
     print(f"  fp32 ({time.perf_counter() - t0:.1f} s, {len(trace)} requests "
           f"on {len(set(slot_of.values()))} slots, {reused} admissions into "
@@ -1453,21 +1516,618 @@ def sched_store_full(checked: set, phase11: dict,
                                          "stdout": res.stdout}}}
 
 
+# ------------------------------------------------------------- phase 13
+def moe_smoke() -> dict:
+    """The MoE smoke configs, fp32: static generate with the dense and the
+    gathered dispatch, and phase 10's trace behind the scheduler (dense),
+    card tokens == CPU tokens and, behind the scheduler, == the card's
+    static oracle; no GOMA kernel launched (the family has no dense MLP,
+    its experts are plain fp32 products, as in the reference)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_to
+    from repro_torch.serving import Engine, ServeConfig
+    none = {k: 0 for k in kernel_fns()}
+    runs = {}
+    for arch in MOE_SMOKE:
+        for dispatch in ("dense", "gathered"):
+            launches = serve_smoke(arch, FULL["prompt_len"], (),
+                                   moe_dispatch=dispatch)
+            if launches != none:
+                raise AssertionError(f"{arch} ({dispatch}) launched "
+                                     f"{launches}")
+            runs[f"serve {arch} smoke, {dispatch}"] = launches
+        cfg = get_config(arch, smoke=True)
+        model = build_model(cfg)
+        params = model.init_params(torch.Generator().manual_seed(SEED),
+                                   "cpu")
+        reqs = smoke_trace(cfg.vocab)
+        scfg = ServeConfig(max_new_tokens=SCHED_SMOKE["new_tokens"],
+                           cache_len=SCHED_SMOKE["cache_len"])
+        knobs = dict(slots=SCHED_SMOKE["slots"],
+                     chunk_widths=SCHED_SMOKE["chunk_widths"],
+                     stop_token=SCHED_SMOKE["stop"])
+        _, cpu = replay_trace(Engine(model, params, scfg), reqs, **knobs)
+        card = Engine(model, tree_to(params, "cuda"), scfg)
+        reset_launches()
+        _, got = replay_trace(card, reqs, **knobs)
+        launches = launch_counts()
+        if launches != none or got != cpu:
+            raise AssertionError(f"{arch} scheduler: launches {launches}, "
+                                 f"card streams {got} vs CPU {cpu}")
+        oracle = Engine(model, card.params, ServeConfig(
+            cache_len=SCHED_SMOKE["cache_len"]))
+        for req in reqs:
+            if got[req.req_id][0] != oracle_tokens(oracle, req):
+                raise AssertionError(f"{arch} request {req.req_id}: "
+                                     f"{got[req.req_id]} != the static "
+                                     f"oracle's")
+        print(f"  {arch} scheduler streams (card == cpu == static "
+              f"oracle): {got}")
+        runs[f"scheduler {arch} smoke"] = launches
+    return runs
+
+
+def leaves(tree: dict):
+    """Every tensor of a parameter tree."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from leaves(v)
+        else:
+            yield v
+
+
+def first_layers(tree: dict, n: int) -> dict:
+    """The first n entries of the layer axis of every leaf (views)."""
+    return {k: first_layers(v, n) if isinstance(v, dict) else v[:n]
+            for k, v in tree.items()}
+
+
+def moe_full(smi: str, out: pathlib.Path | None) -> dict:
+    """deepseek-moe-16b at its published widths, bf16 (banks stored in
+    bf16, products in fp32), random weights made on the card: static
+    generate (FULL's batch, prompt and new tokens; timed on a second run),
+    then phase 11's deployment and trace behind the scheduler: a first
+    replay (finite logits, no GOMA kernel launched), a second one timed
+    with zero solver calls, a third one under the profiler (device only)
+    for the device's busy share.  Then the fp32 gate at MOE_GATE_LAYERS
+    layers, the served weights' first layers in fp32: the whole trace
+    again, every emitted token's logits row within PATH_TOL of scale of
+    the teacher-forced static prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.solver import reset_solver_stats, solver_stats
+    from repro_torch.models import build_model
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving.sched import (ContinuousScheduler, SchedConfig,
+                                           TraceClock, replay)
+    none = {k: 0 for k in kernel_fns()}
+    cfg = get_config(MOE_ARCH)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    print(f"  {n_params} parameters, "
+          f"{torch.cuda.memory_allocated() / 2**30} GiB on the card, made "
+          f"in {time.perf_counter() - t0:.1f} s")
+    B, S, new = FULL["batch"], FULL["prompt_len"], FULL["new_tokens"]
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (B, S)).astype(np.int32)
+    finite = watch_logits(model)
+    eng = Engine(model, params, ServeConfig(max_new_tokens=new,
+                                            cache_len=S + new + 8))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tokens = eng.generate(prompts)
+    static_launches = launch_counts()
+    static_passes = len(finite)
+    if tokens.shape != (B, new) or not ((tokens >= 0)
+                                        & (tokens < cfg.vocab)).all() \
+            or not all(bool(f) for f in finite) \
+            or static_launches != none:
+        raise AssertionError(f"static generate: tokens {tokens.tolist()}, "
+                             f"launches {static_launches}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = eng.generate(prompts)
+    dt = time.perf_counter() - t0
+    if not np.array_equal(again, tokens):
+        raise AssertionError("a second greedy run gave other tokens")
+    static = {"tokens_per_s": B * new / dt, "seconds": dt,
+              "forward_passes": static_passes,
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(f"  static: tokens {tokens.tolist()}; {static}")
+    del eng
+    finite.clear()
+
+    trace = sched_full_trace(cfg.vocab)
+    knobs = dict(slots=SCHED_FULL["slots"],
+                 chunk_widths=SCHED_FULL["chunk_widths"])
+    scfg = ServeConfig(max_new_tokens=SCHED_FULL["new_tokens"],
+                       cache_len=SCHED_FULL["cache_len"])
+    reset_launches()
+    sched, streams = replay_trace(Engine(model, params, scfg), trace,
+                                  **knobs)
+    launches = launch_counts()
+    passes = sched.metrics.prefill_chunks + sched.metrics.decode_steps
+    if launches != none or len(finite) != passes or \
+            not all(bool(f) for f in finite):
+        raise AssertionError(f"scheduler: launches {launches}, "
+                             f"{len(finite)} passes of {passes} checked "
+                             f"finite")
+    del model._lm_logits        # watch_logits' wrapper: these runs only
+    served = [streams[r.req_id][0] for r in trace]
+    if any(len(t) != r.max_new_tokens or min(t) < 0 or max(t) >= cfg.vocab
+           for t, r in zip(served, trace)):
+        raise AssertionError(f"bad streams {streams}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_solver_stats()
+    timed, again = replay_trace(Engine(model, params, scfg), trace, **knobs)
+    torch.cuda.synchronize()
+    solves = solver_stats()["calls"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if again != streams or solves:
+        raise AssertionError(f"the timed replay made {solves} solver calls "
+                             f"or gave other streams")
+    summ = timed.metrics.summary()
+    prof = profile_run(lambda: replay_trace(Engine(model, params, scfg),
+                                            trace, **knobs),
+                       smi, out, "profile_sched_moe", host_ops=False)
+    print(f"  scheduler: streams {streams}")
+    print(f"  forward passes {passes}, launches {launches}, solver calls "
+          f"{solves} (timed replay)")
+    print(f"  tokens/s {summ['tokens_per_s']}, ttft p50/p95 "
+          f"{summ['ttft_p50_s']}/{summ['ttft_p95_s']} s, tpot p50 "
+          f"{summ['tpot_p50_s']} s, ticks {summ['steps']}, peak memory "
+          f"{peak} GiB, device busy share {prof['device_busy_share']}")
+    del sched, timed
+
+    # fp32: the served weights' first layers, the same trace
+    t0 = time.perf_counter()
+    cut = dict(params, layers=first_layers(params["layers"],
+                                           MOE_GATE_LAYERS))
+    params32 = tree_float(cut)
+    del params, cut
+    free_device()
+    model32 = build_model(dataclasses.replace(
+        cfg, layers=MOE_GATE_LAYERS, compute_dtype="float32"))
+    clock = TraceClock()
+    holder = {}
+    rows, slot_of, on_token = capture_emitted_logits(model32, holder)
+    sched = ContinuousScheduler(Engine(model32, params32, scfg),
+                                SchedConfig(**knobs), clock=clock.now,
+                                on_token=on_token)
+    holder["scheds"] = [sched]
+    results = replay(sched, trace, clock)
+    del model32.decode_step
+    errs = teacher_forced_errs(model32, params32, trace, results, rows)
+    worst = max(max(e) for e in errs.values())
+    print(f"  fp32 at {MOE_GATE_LAYERS} layers ({time.perf_counter() - t0:.1f}"
+          f" s, {len(trace)} requests on {len(set(slot_of.values()))} "
+          f"slots): every emitted token's logits row vs the teacher-forced "
+          f"static prefill, largest max abs err {worst} (tol {PATH_TOL} x "
+          f"scale)")
+    return {"launches": {"static": static_launches, "scheduler": launches},
+            "serve": {"parameters": n_params, "static": static,
+                      "metrics": summ, "peak_memory_gib": peak,
+                      "forward_passes": passes, "solver_calls": solves,
+                      "device_busy_share": prof["device_busy_share"],
+                      "device_kernel_launches":
+                          prof["device_kernel_launches"],
+                      "fp32_gate_layers": MOE_GATE_LAYERS,
+                      "fp32_logits_err": errs}}
+
+
+# ------------------------------------------------------------- phase 14
+def smoke_prefix_trace(vocab: int) -> list:
+    """Phase 10's arrivals and budgets as a Poisson trace of 8 requests,
+    each prompt behind one shared prefix of SPEC_SMOKE's length."""
+    from repro_torch.serving.sched import TrafficConfig, shared_prefix_trace
+    return shared_prefix_trace(TrafficConfig(
+        n_requests=SCHED_SMOKE["requests"], arrival_rate=20.0,
+        prompt_mix=((3, 23, 1.0),), max_new_tokens=SCHED_SMOKE["new_tokens"],
+        vocab=vocab, stop_token=SCHED_SMOKE["stop"], seed=SEED),
+        prefix_len=SPEC_SMOKE["prefix_len"])
+
+
+def scaleout_paths(model, params, dparams, prompts, reqs, prefix_reqs,
+                   store_dir: pathlib.Path | None) -> dict:
+    """llama3-8b smoke's scale-out paths on the device of ``params``:
+    spec_generate with the n-gram drafter and with a model drafter
+    (``dparams``), the scheduler at SPEC_SMOKE's window width with the
+    n-gram drafter, the prefix trace through a PrefixCache, two replicas
+    with prefix cache and spec, two replicas with one killed mid-trace
+    (router.replica_down), and with ``store_dir`` two replicas planned
+    from a fresh store by the donor's prewarm alone (solver calls and
+    store misses of the replay).  Returns the streams by path."""
+    from repro_torch.core.solver import reset_solver_stats, solver_stats
+    from repro_torch.faults import FaultInjector, FaultSpec, set_injector
+    from repro_torch.obs.registry import get_registry
+    from repro_torch.planner import PlanStore
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving.router import (ModelDrafter, NgramDrafter,
+                                            PrefixCache, ReplicaRouter,
+                                            RouterConfig, spec_generate)
+    from repro_torch.serving.sched import SchedConfig
+    scfg = ServeConfig(max_new_tokens=SCHED_SMOKE["new_tokens"],
+                       cache_len=SCHED_SMOKE["cache_len"])
+    knobs = dict(slots=SCHED_SMOKE["slots"],
+                 chunk_widths=SCHED_SMOKE["chunk_widths"],
+                 stop_token=SCHED_SMOKE["stop"])
+    spec = dict(spec_width=SPEC_SMOKE["spec_width"])
+    eng = Engine(model, params, scfg)
+    out = {}
+    for name, drafter in (
+            ("spec_generate ngram", NgramDrafter()),
+            ("spec_generate model drafter",
+             ModelDrafter(Engine(model, dparams, scfg)))):
+        out[name] = [spec_generate(eng, p, drafter,
+                                   max_new_tokens=SPEC_SMOKE["new_tokens"],
+                                   widths=SPEC_SMOKE["widths"]).tolist()
+                     for p in prompts]
+    _, out["scheduler spec"] = replay_trace(eng, reqs, drafter=NgramDrafter(),
+                                            **knobs, **spec)
+    reg = get_registry()
+    reg.reset()
+    pc = PrefixCache(max(SCHED_SMOKE["chunk_widths"]))
+    _, out["scheduler prefix"] = replay_trace(eng, prefix_reqs,
+                                              prefix_cache=pc, **knobs)
+    out["prefix hits"] = reg.get("prefix.hits")
+
+    def fleet(engine):
+        router = ReplicaRouter(engine, RouterConfig(
+            replicas=2, sched=SchedConfig(**knobs, **spec)),
+            prefix_cache=PrefixCache(max(SCHED_SMOKE["chunk_widths"])),
+            drafter=NgramDrafter())
+        return router, {r.req_id: (r.tokens, r.finish_reason)
+                        for r in router.route_trace(prefix_reqs)}
+
+    _, out["router"] = fleet(eng)
+    set_injector(FaultInjector([FaultSpec("router.replica_down", at=(6,))],
+                               seed=0))
+    try:
+        router, out["router replica_down"] = fleet(eng)
+    finally:
+        set_injector(None)
+    out["alive after replica_down"] = sum(router.alive)
+    if store_dir is not None:
+        from repro_torch.core import hopper_mapping
+        store = PlanStore(store_dir)
+        try:
+            router = ReplicaRouter(
+                Engine(model, params, scfg, plan_store=store),
+                RouterConfig(replicas=2, sched=SchedConfig(
+                    **knobs, **spec, prewarm_source="enumerated")),
+                arch_id="llama3-8b", drafter=NgramDrafter(),
+                prefix_cache=PrefixCache(max(SCHED_SMOKE["chunk_widths"])))
+            groups = [sorted(s._plan_groups) + sorted(s._chain_groups)
+                      for s in router.scheds]
+            reset_solver_stats()
+            misses = store.misses
+            out["router from a store"] = {
+                r.req_id: (r.tokens, r.finish_reason)
+                for r in router.route_trace(prefix_reqs)}
+            out["fleet solver calls, store misses"] = (
+                solver_stats()["calls"], store.misses - misses)
+            out["fleet prewarm"] = {
+                "donor": router.scheds[0].prewarmed_plans,
+                "donor chains": router.scheds[0].prewarmed_chains,
+                "replicas": [s.prewarmed_plans for s in router.scheds[1:]],
+                "groups": groups, "store": store.stats()}
+        finally:
+            hopper_mapping.set_plan_store(None)
+    return out
+
+
+def scaleout_smoke(checked: set, store_dir: pathlib.Path) -> dict:
+    """Scale-out on llama3-8b's smoke config, fp32, fused MLP (B2), one
+    set of weights made on the CPU (the drafter's from another seed):
+    scaleout_paths on the card (launch counts set to 0 just before)
+    equals scaleout_paths on the CPU path by path; every stream equals the
+    card's static oracle (a replica_down casualty its prefix); B2 launched
+    once per layer and forward pass, every launch at a shape phase 3
+    held; the grafted KV rows are bitwise the rows the prefix's chunks
+    compute on the card; the fleet planned from a fresh store makes zero
+    solver calls and store misses in its replay, the verify groups
+    included."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_to
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving.router import PrefixCache
+    from repro_torch.serving.sched import Request
+    cfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
+                              fused_mlp=True)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(SEED), "cpu")
+    dparams = model.init_params(torch.Generator().manual_seed(SEED + 1),
+                                "cpu")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, (SPEC_SMOKE["prompt_len"],))
+               for _ in range(SPEC_SMOKE["prompts"])]
+    reqs = smoke_trace(cfg.vocab)
+    prefix_reqs = smoke_prefix_trace(cfg.vocab)
+    cpu = scaleout_paths(model, params, dparams, prompts, reqs, prefix_reqs,
+                         None)
+    card_params = tree_to(params, "cuda")
+    finite = watch_logits(model)
+    reset_launches()
+    seen = {}
+    with recording_shapes(seen):
+        card = scaleout_paths(model, card_params, tree_to(dparams, "cuda"),
+                              prompts, reqs, prefix_reqs, store_dir)
+    launches = launch_counts()
+    del model._lm_logits
+    passes = len(finite)
+    want = {**{k: 0 for k in launches},
+            "goma_fused_matmul": cfg.layers * passes}
+    if launches != want or not all(bool(f) for f in finite):
+        raise AssertionError(f"scale-out smoke launches {launches} != "
+                             f"{want} ({passes} forward passes), or "
+                             f"non-finite logits")
+    shapes = held_shapes(seen, launches, checked)
+    for name, got in cpu.items():
+        if card[name] != got:
+            raise AssertionError(f"{name}: card {card[name]} != CPU {got}")
+    # the card's static oracle
+    oracle = Engine(model, card_params, ServeConfig(
+        cache_len=SCHED_SMOKE["cache_len"]))
+    for name in ("spec_generate ngram", "spec_generate model drafter"):
+        for p, got in zip(prompts, card[name]):
+            oracle.cfg.max_new_tokens = SPEC_SMOKE["new_tokens"]
+            oracle.cfg.stop_token = None
+            if got != oracle.generate(p[None])[0].tolist():
+                raise AssertionError(f"{name}: {got} != the static oracle's")
+    for name, trace in (("scheduler spec", reqs),
+                        ("scheduler prefix", prefix_reqs),
+                        ("router", prefix_reqs),
+                        ("router from a store", prefix_reqs),
+                        ("router replica_down", prefix_reqs)):
+        for req in trace:
+            tokens, reason = card[name][req.req_id]
+            want_tokens = oracle_tokens(oracle, req)
+            if reason == "errored" and name == "router replica_down":
+                want_tokens = want_tokens[:len(tokens)]
+            if tokens != want_tokens:
+                raise AssertionError(f"{name} request {req.req_id}: "
+                                     f"{tokens} != the static oracle's "
+                                     f"{want_tokens}")
+    if card["prefix hits"] <= 0 or card["alive after replica_down"] != 1:
+        raise AssertionError(f"no prefix hit ({card['prefix hits']}) or no "
+                             f"replica down")
+    if card["fleet solver calls, store misses"] != (0, 0) or any(
+            g != card["fleet prewarm"]["groups"][0]
+            for g in card["fleet prewarm"]["groups"]) or \
+            "verify4" not in card["fleet prewarm"]["groups"][0]:
+        raise AssertionError(f"the fleet from a store: "
+                             f"{card['fleet solver calls, store misses']} "
+                             f"{card['fleet prewarm']}")
+    # the grafted rows against the rows the prefix's chunks compute
+    eng = Engine(model, card_params, ServeConfig(
+        cache_len=SCHED_SMOKE["cache_len"]))
+    width = max(SCHED_SMOKE["chunk_widths"])
+    pc = PrefixCache(width)
+    toks = np.concatenate([prefix_reqs[0].tokens[:SPEC_SMOKE["prefix_len"]],
+                           np.arange(5)])
+    replay_trace(eng, [Request(req_id=0, tokens=toks, max_new_tokens=1)],
+                 prefix_cache=pc, slots=1,
+                 chunk_widths=SCHED_SMOKE["chunk_widths"])
+    p, entry = pc.lookup(toks)
+    grafted = pc.graft(eng.new_cache(1), entry)
+    fresh = eng.new_cache(1)
+    with torch.inference_mode():
+        for start in range(0, p, width):
+            eng.prefill_chunk(fresh, toks[None, start:start + width], start)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(grafted["layers"][k][:, :, :p],
+                              fresh["layers"][k][:, :, :p])
+                  for k in ("k", "v"))
+    if not bitwise:
+        raise AssertionError("grafted KV rows != the recomputed rows")
+    print(f"  every path card == cpu == static oracle: "
+          f"{ {k: v for k, v in card.items() if 'prewarm' not in k} }")
+    print(f"  fleet from a fresh store: {card['fleet prewarm']}, replay "
+          f"solver calls and store misses "
+          f"{card['fleet solver calls, store misses']}")
+    print(f"  grafted rows [0, {p}) bitwise equal to the recomputed rows: "
+          f"{bitwise}")
+    print(f"  forward passes {passes}, launches {launches}")
+    print(f"  launches by shape (each held in phase 3): {seen}")
+    return {"launches": launches, "shapes": shapes,
+            "fleet_prewarm": card["fleet prewarm"],
+            "prefix_hits": card["prefix hits"]}
+
+
+def scaleout_full(checked: set, store_dir: pathlib.Path) -> dict:
+    """llama3-8b at full width, bf16, fused MLP (every MLP three B1
+    launches and a goma_combine): two replicas of phase 11's deployment
+    behind the router, over phase 11's trace with a shared prefix of 128
+    tokens, a prefix cache and the n-gram drafter at width 4, planned from
+    a fresh store by the donor's enumerated prewarm.  The replay: zero
+    solver calls and store misses, exact launch counts, every launch at a
+    shape phase 3 held, finite logits; a second fleet on the same store,
+    timed; as a bf16 witness (reported, not held) the streams equal to
+    the same trace served without spec and prefix cache.  Then in fp32,
+    the same fleet and trace: every emitted token's logits row within
+    PATH_TOL of scale of the teacher-forced static prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import hopper_mapping
+    from repro_torch.core.solver import reset_solver_stats, solver_stats
+    from repro_torch.models import build_model
+    from repro_torch.obs.registry import get_registry
+    from repro_torch.planner import PlanStore
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving.router import (NgramDrafter, PrefixCache,
+                                            ReplicaRouter, RouterConfig)
+    from repro_torch.serving.sched import (SchedConfig, TrafficConfig,
+                                           shared_prefix_trace)
+    cfg = dataclasses.replace(get_config("llama3-8b"), fused_mlp=True)
+    model = build_model(cfg)
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    trace = shared_prefix_trace(TrafficConfig(
+        n_requests=SCHED_FULL["requests"],
+        arrival_rate=SCHED_FULL["arrival_rate"],
+        prompt_mix=SCHED_FULL["prompt_mix"],
+        max_new_tokens=SCHED_FULL["new_tokens"], vocab=cfg.vocab,
+        seed=SEED), prefix_len=SCALEOUT_FULL["prefix_len"])
+    scfg = ServeConfig(max_new_tokens=SCHED_FULL["new_tokens"],
+                       cache_len=SCALEOUT_FULL["cache_len"])
+    sched_cfg = SchedConfig(slots=SCHED_FULL["slots"],
+                            chunk_widths=SCHED_FULL["chunk_widths"],
+                            spec_width=SCALEOUT_FULL["spec_width"],
+                            prewarm_source="enumerated")
+    reg = get_registry()
+
+    def fleet(p, m, *, store=None, scale_out=True, on_token=None):
+        cfg_r = sched_cfg if scale_out else dataclasses.replace(
+            sched_cfg, spec_width=None)
+        return ReplicaRouter(
+            Engine(m, p, scfg, plan_store=store),
+            RouterConfig(replicas=SCALEOUT_FULL["replicas"], sched=cfg_r),
+            arch_id="llama3-8b" if store is not None else None,
+            prefix_cache=PrefixCache(
+                max(SCHED_FULL["chunk_widths"]),
+                max_bytes=SCALEOUT_FULL["prefix_mib"] << 20)
+            if scale_out else None,
+            drafter=NgramDrafter() if scale_out else None,
+            on_token=on_token)
+
+    def streams_of(results):
+        return {r.req_id: (r.tokens, r.finish_reason) for r in results}
+
+    store = PlanStore(store_dir)
+    try:
+        reset_solver_stats()
+        t0 = time.perf_counter()
+        router = fleet(params, model, store=store)
+        prewarm = {"seconds": time.perf_counter() - t0,
+                   "solver_calls": solver_stats()["calls"],
+                   "prewarmed_plans": router.prewarmed_plans,
+                   "prewarmed_chains": router.scheds[0].prewarmed_chains,
+                   "store": store.stats()}
+        reset_solver_stats()
+        misses = store.misses
+        reg.reset()
+        finite = watch_logits(model)
+        reset_launches()
+        seen = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with recording_shapes(seen):
+            results = router.route_trace(trace)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        solves = solver_stats()["calls"]
+        passes = len(finite)
+        del model._lm_logits
+        want = {**{k: 0 for k in counts},
+                "goma_matmul": 3 * cfg.layers * passes,
+                "goma_combine": cfg.layers * passes}
+        if solves or store.misses != misses or counts != want or \
+                not all(bool(f) for f in finite):
+            raise AssertionError(f"fleet replay: {solves} solver calls, "
+                                 f"{store.misses - misses} store misses, "
+                                 f"launches {counts} (want {want}), or "
+                                 f"non-finite logits")
+        shapes = held_shapes(seen, counts, checked)
+        streams = streams_of(results)
+        if any(len(t) != r.max_new_tokens or reason != "length"
+               for r in trace for t, reason in [streams[r.req_id]]):
+            raise AssertionError(f"bad streams {streams}")
+        snap = reg.snapshot()
+        scale = {k: snap.get(k, 0) for k in (
+            "prefix.hits", "prefix.misses", "prefix.inserts",
+            "sched.prefix_tokens_reused", "sched.spec.rounds",
+            "sched.spec.drafted", "sched.spec.accepted", "router.routed",
+            "router.replica0.routed", "router.replica1.routed")}
+        summ = router.summary()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # a second fleet on the same store, timed
+        reset_solver_stats()
+        torch.cuda.synchronize()
+        timed = fleet(params, model, store=store)
+        again = streams_of(timed.route_trace(trace))
+        torch.cuda.synchronize()
+        summ2 = timed.summary()
+        solves2 = solver_stats()["calls"]
+        if solves2:
+            raise AssertionError(f"the second fleet made {solves2} solver "
+                                 f"calls")
+    finally:
+        hopper_mapping.set_plan_store(None)
+    del router, timed
+    plain = streams_of(fleet(params, model, scale_out=False)
+                       .route_trace(trace))
+    witness = sum(streams[r][0] == plain[r][0] for r in streams)
+    second = sum(streams[r][0] == again[r][0] for r in streams)
+    print(f"  prewarm (donor, fresh store): {prewarm}")
+    print(f"  replay: solver calls {solves}, store misses "
+          f"{store.misses - misses}; forward passes {passes}, launches "
+          f"{counts}")
+    print(f"  launches by shape (each held in phase 3): {seen}")
+    print(f"  scale-out counters: {scale} (each prefix insert copies the k "
+          f"and v rows to the host: {2 * scale['prefix.inserts']} copies)")
+    print(f"  fleet: tokens/s {summ['tokens_per_s']} over makespan "
+          f"{summ['makespan_s']} s, ttft p50/p95 {summ['ttft_p50_s']}/"
+          f"{summ['ttft_p95_s']} s, tpot p50 {summ['tpot_p50_s']} s, peak "
+          f"memory {peak} GiB")
+    print(f"  second fleet (timed): tokens/s {summ2['tokens_per_s']} over "
+          f"makespan {summ2['makespan_s']} s, ttft p50/p95 "
+          f"{summ2['ttft_p50_s']}/{summ2['ttft_p95_s']} s, tpot p50 "
+          f"{summ2['tpot_p50_s']} s, solver calls 0; streams equal to the "
+          f"first fleet's: {second} of {len(streams)}")
+    print(f"  bf16 witness (reported, not held): {witness} of "
+          f"{len(streams)} streams equal to the same trace without spec "
+          f"and prefix cache")
+
+    # fp32: the same weights, fleet and trace
+    t0 = time.perf_counter()
+    params32 = tree_float(params)
+    del params
+    free_device()
+    model32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"))
+    holder = {}
+    rows, _, on_token = capture_emitted_logits(model32, holder)
+    router = fleet(params32, model32, on_token=on_token)
+    holder["scheds"] = router.scheds
+    results = router.route_trace(trace)
+    del model32.decode_step
+    errs = teacher_forced_errs(model32, params32, trace, results, rows)
+    worst = max(max(e) for e in errs.values())
+    print(f"  fp32 ({time.perf_counter() - t0:.1f} s): every emitted "
+          f"token's logits row vs the teacher-forced static prefill, "
+          f"largest max abs err {worst} (tol {PATH_TOL} x scale)")
+    return {"launches": counts, "shapes": shapes,
+            "serve": {"prewarm": prewarm, "solver_calls": solves,
+                      "forward_passes": passes, "scale_out": scale,
+                      "metrics": summ, "metrics_second_fleet": summ2,
+                      "peak_memory_gib": peak,
+                      "streams_equal_second_fleet": second,
+                      "bf16_witness_equal_without_scale_out": witness,
+                      "fp32_logits_err": errs}}
+
+
 # device-kernel name fragments of the port's hand-written kernels
 PORT_KERNELS = {"goma": "goma_", "b1": "goma_matmul", "wkv6": "wkv6_kernel",
                 "ssd": "ssd_scan_kernel", "ssd_cb": "ssd_cb_kernel"}
 
 
-def profile_run(fn, smi: str, out: pathlib.Path, name: str) -> None:
+def profile_run(fn, smi: str, out: pathlib.Path | None, name: str, *,
+                host_ops: bool = True) -> dict:
     """One more run of fn (a generate, a scheduler replay) under
     torch.profiler: device time by kernel, the device's busy and idle
     shares of the wall time, and the port kernels' shares, to
-    out/<name>.{json,txt}."""
+    out/<name>.{json,txt} (with ``out``) and returned.  Without
+    ``host_ops`` only the device is traced, which keeps a long replay's
+    trace small; the shares need nothing else."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host_ops
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1493,15 +2153,17 @@ def profile_run(fn, smi: str, out: pathlib.Path, name: str) -> None:
                "port_kernels_share_of_busy": {k: v / busy
                                               for k, v in port.items()},
                "top": rows[:20]}
-    (out / f"{name}.json").write_text(json.dumps(summary, indent=1))
-    table = prof.key_averages().table(sort_by="self_cuda_time_total",
-                                      row_limit=25)
-    (out / f"{name}.txt").write_text(f"{smi}\n{table}\n")
+    if out is not None:
+        (out / f"{name}.json").write_text(json.dumps(summary, indent=1))
+        table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                          row_limit=25)
+        (out / f"{name}.txt").write_text(f"{smi}\n{table}\n")
     print(f"  profiled {name}: wall {wall_ms} ms, device busy {busy} ms "
           f"(share {busy / wall_ms}), port kernels {port} ms")
     for r in rows[:8]:
         print(f"    {r['device_ms']:10.3f} ms {r['calls']:6d}  "
               f"{r['name'][:80]}")
+    return summary
 
 
 def main() -> None:
@@ -1584,10 +2246,12 @@ def main() -> None:
                     objective=0.0, unfused_objective=0.0, solve_time_s=0.0)
                 b2_rows.append(check_b2(128, 128, 128, dtype, gen,
                                         plan=plan, timed=False))
-        # the smoke chain at decode and prefill (phase 4), and at the
-        # scheduler's slots and chunk widths (phase 10)
+        # the smoke chain at decode and prefill (phase 4), at the
+        # scheduler's slots and chunk widths (phase 10), and at the rows of
+        # the scale-out paths (phase 14)
         for M in sorted({FULL["batch"], FULL["batch"] * FULL["prompt_len"],
-                         SCHED_SMOKE["slots"], *SCHED_SMOKE["chunk_widths"]}):
+                         SCHED_SMOKE["slots"], *SCHED_SMOKE["chunk_widths"],
+                         *SPEC_SMOKE_ROWS}):
             b2_rows.append(check_b2(M, 128, 64, torch.float32, gen,
                                     timed=True))
         # the composition's combine: an odd fp32 shape, and every served
@@ -1688,6 +2352,25 @@ def main() -> None:
         shapes["scheduler llama3-8b full width, plan store"] = \
             store_full["shapes"]
     free_device()
+    with phase("13 the MoE family: deepseek-moe-16b and granite smoke, "
+               "deepseek-moe-16b at full width (no GOMA kernel)"):
+        runs.update(moe_smoke())
+        moe = moe_full(smi, out)
+        runs["serve deepseek-moe-16b full width"] = moe["launches"]["static"]
+        runs["scheduler deepseek-moe-16b full width"] = \
+            moe["launches"]["scheduler"]
+    free_device()
+    with phase("14 scale-out: speculative decoding, the prefix cache and the "
+               "replica router on llama3-8b (B2; B1, goma_combine)"):
+        spec_smoke = scaleout_smoke(checked, stores / "scaleout_smoke")
+        runs["scale-out llama3-8b smoke"] = spec_smoke["launches"]
+        shapes["scale-out llama3-8b smoke"] = spec_smoke["shapes"]
+        spec_full = scaleout_full(checked, stores / "scaleout_full")
+        runs["router llama3-8b full width, spec and prefix cache"] = \
+            spec_full["launches"]
+        shapes["router llama3-8b full width, spec and prefix cache"] = \
+            spec_full["shapes"]
+    free_device()
 
     b1 = next(r for r in b1_rows if r["shape"] == [4, 14336, 4096])
     b2 = next(r for r in b2_rows if r["shape"] == [4, 128, 64])
@@ -1741,6 +2424,10 @@ def main() -> None:
              "c7_row_independence": c7,
              "plan_store": {"smoke": smoke_store["store"],
                             "full_width": store_full["serve"]},
+             "moe": moe["serve"],
+             "scale_out": {"smoke": {k: spec_smoke[k] for k in (
+                               "fleet_prewarm", "prefix_hits")},
+                           "full_width": spec_full["serve"]},
              "launches": runs,
              "shapes": shapes,
              "kernels": kernels,

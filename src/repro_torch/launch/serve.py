@@ -7,6 +7,11 @@
         --scan-kernel [--smoke] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
         --scan-kernel --fused-mlp [--smoke] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-moe-16b [--smoke] [--continuous] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --fused-mlp --continuous --replicas 2 --prefix-cache 64 \
+        --draft-model ngram --spec-width 4 [--smoke] [--device cpu]
 
 Two modes:
   * static (default): one batch of identical-arrival prompts through
@@ -14,7 +19,11 @@ Two modes:
   * ``--continuous``: the continuous-batching scheduler
     (``repro_torch.serving.sched``) replaying a synthetic Poisson trace —
     chunked prefill interleaved with in-flight decode, slot recycling,
-    per-request streaming.  Dense archs only.
+    per-request streaming.  Dense and MoE archs; ``--replicas N`` routes
+    the trace through the replica router (``serving.router``), and
+    ``--prefix-cache`` and ``--draft-model`` add the KV prefix cache and
+    speculative decoding.  A recurrent arch behind ``--replicas`` takes
+    the router's static fallback.
 
 Runs on the CUDA card unless ``--device cpu`` is given; without a card
 and without that flag it exits with an error instead of falling back.
@@ -27,9 +36,8 @@ hands the store to the scheduler's bucketed prewarm.  The port prewarms
 from the hand extraction tables only (``--prewarm-source enumerated``);
 the reference's default, program capture, is not ported yet (ROADMAP
 A10) and is refused.  A second run on the same store prints ``puts: 0``
-and makes no solver call.  The replica router, the prefix cache,
-speculative decoding and fault injection from the command line come with
-later slices of the port.
+and makes no solver call.  ``--inject`` and ``--chaos-seed`` install a
+deterministic fault schedule (``faults.parse_faults``).
 """
 from __future__ import annotations
 
@@ -103,12 +111,47 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--watchdog-tick-s", type=float, default=None,
                     help="--continuous: wall-clock budget per scheduler "
                          "tick; slower ticks count sched.watchdog_trips")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="--continuous: scheduler replica count; > 1 "
+                         "routes the trace through the replica router "
+                         "(one shared prewarm pass, least-loaded "
+                         "admission, virtual per-replica clocks)")
+    ap.add_argument("--prefix-cache", type=int, default=None,
+                    metavar="MB",
+                    help="--continuous: enable the KV prefix cache with "
+                         "this byte budget in MiB — shared-prefix "
+                         "admissions graft cached KV rows instead of "
+                         "re-prefilling them")
+    ap.add_argument("--draft-model", default=None, metavar="DRAFTER",
+                    help="--continuous: speculative decoding drafter: "
+                         "'ngram' (prompt-lookup, zero model calls) or "
+                         "an arch name served as a draft model through "
+                         "its own engine.  Greedy only")
+    ap.add_argument("--spec-width", type=int, default=4,
+                    help="--draft-model: verify window width (1 "
+                         "committed + spec-width-1 draft tokens)")
+    ap.add_argument("--ttft-slo-s", type=float, default=None,
+                    help="--continuous: TTFT SLO for the attainment/"
+                         "goodput summary fields")
+    ap.add_argument("--tpot-slo-s", type=float, default=None,
+                    help="--continuous: per-token latency SLO for the "
+                         "attainment/goodput summary fields")
+    ap.add_argument("--inject", default=None, metavar="SPECS",
+                    help="chaos fault schedule, e.g. "
+                         "'store.corrupt:0.01,kernel.nan_row@3' "
+                         "(see repro_torch.faults.parse_faults)")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="seed of the fault-injection RNG streams")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error("no CUDA device is available; pass --device cpu to serve "
                  "on the CPU")
+    if args.inject:
+        from ..faults import FaultInjector, parse_faults, set_injector
+        set_injector(FaultInjector(parse_faults(args.inject),
+                                   seed=args.chaos_seed))
 
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.fused_mlp:
@@ -176,6 +219,38 @@ def _serve_continuous(args, cfg, model, params, device, store) -> None:
         n_requests=args.requests, arrival_rate=args.arrival_rate,
         prompt_mix=((lo, args.prompt_len, 1.0),),
         max_new_tokens=args.new_tokens, vocab=cfg.vocab))
+    # scale-out options (repro_torch.serving.router)
+    prefix_cache = drafter = spec_width = None
+    if args.prefix_cache is not None:
+        from ..serving.router import PrefixCache
+        prefix_cache = PrefixCache(wmax, max_bytes=args.prefix_cache << 20)
+    if args.draft_model is not None:
+        spec_width = args.spec_width
+        if args.draft_model == "ngram":
+            from ..serving.router import NgramDrafter
+            drafter = NgramDrafter()
+        else:
+            from ..serving.router import ModelDrafter
+            dcfg = get_config(args.draft_model, smoke=args.smoke)
+            dmodel = build_model(dcfg)
+            dparams = dmodel.init_params(
+                torch.Generator(device=device).manual_seed(7), device)
+            drafter = ModelDrafter(Engine(
+                dmodel, dparams, ServeConfig(cache_len=eng.cfg.cache_len),
+                plan_store=store))
+    sched_cfg = SchedConfig(slots=args.batch, chunk_widths=widths,
+                            temperature=args.temperature,
+                            prewarm_source=args.prewarm_source,
+                            max_queue=args.max_queue,
+                            shed_on_full=args.max_queue is not None,
+                            default_deadline_s=args.deadline_s,
+                            watchdog_tick_s=args.watchdog_tick_s,
+                            spec_width=spec_width)
+    arch_id = args.arch if store is not None else None
+    if args.replicas > 1:
+        _serve_router(args, cfg, eng, sched_cfg, trace, arch_id,
+                      prefix_cache, drafter, device, store)
+        return
     clock = TraceClock()
     with contextlib.ExitStack() as stack:
         on_tick = None
@@ -192,15 +267,10 @@ def _serve_continuous(args, cfg, model, params, device, store) -> None:
 
         t0 = time.perf_counter()
         sched = ContinuousScheduler(
-            eng, SchedConfig(slots=args.batch, chunk_widths=widths,
-                             temperature=args.temperature,
-                             prewarm_source=args.prewarm_source,
-                             max_queue=args.max_queue,
-                             shed_on_full=args.max_queue is not None,
-                             default_deadline_s=args.deadline_s,
-                             watchdog_tick_s=args.watchdog_tick_s),
-            arch_id=args.arch if store is not None else None,
-            clock=clock.now, on_tick=on_tick)
+            eng, sched_cfg, arch_id=arch_id, clock=clock.now,
+            on_tick=on_tick, prefix_cache=prefix_cache, drafter=drafter)
+        sched.metrics.ttft_slo_s = args.ttft_slo_s
+        sched.metrics.tpot_slo_s = args.tpot_slo_s
         if store is not None:
             print(f"plan prewarm: {sched.prewarmed_plans} GEMM tilings, "
                   f"{sched.prewarmed_chains} fused chains in "
@@ -217,10 +287,55 @@ def _serve_continuous(args, cfg, model, params, device, store) -> None:
           f"{summ['ttft_p95_s']:.3f}s  tpot p50: {summ['tpot_p50_s']:.3f}s  "
           f"occupancy: {summ['mean_slot_occupancy']:.2f}  "
           f"chunks: {summ['prefill_chunks']}  ticks: {summ['steps']}")
+    _print_serving(summ)
+    _print_planning(store)
+
+
+def _print_serving(summ: dict) -> None:
+    """The summary's SLO and degradation lines, and the scale-out
+    counters, where the run has them."""
+    if "slo_attainment" in summ:
+        print(f"  slo attainment: {summ['slo_attainment']:.2%}  "
+              f"goodput: {summ['goodput_tokens_per_s']:.1f} tok/s")
     if summ["rejected"] or summ["expired"] or summ["errored"]:
         print(f"  degraded: rejected={summ['rejected']} "
               f"expired={summ['expired']} errored={summ['errored']} "
               f"(served {summ['served']}/{summ['requests']})")
+    snap = get_registry().snapshot()
+    scale = {k: v for k, v in snap.items()
+             if k.startswith(("prefix.", "sched.spec.", "router."))
+             or k == "sched.prefix_tokens_reused"}
+    if scale:
+        print(f"  scale-out: {scale}")
+
+
+def _serve_router(args, cfg, eng, sched_cfg, trace, arch_id, prefix_cache,
+                  drafter, device, store) -> None:
+    """--replicas N: the trace through the replica router."""
+    from ..serving.router import ReplicaRouter, RouterConfig
+    t0 = time.perf_counter()
+    router = ReplicaRouter(
+        eng, RouterConfig(replicas=args.replicas, sched=sched_cfg,
+                          ttft_slo_s=args.ttft_slo_s,
+                          tpot_slo_s=args.tpot_slo_s),
+        arch_id=arch_id, prefix_cache=prefix_cache, drafter=drafter)
+    if store is not None:
+        print(f"plan prewarm (fleet, one pass): {router.prewarmed_plans} "
+              f"GEMM tilings in {time.perf_counter() - t0:.2f}s  "
+              f"store={store.stats()}")
+    results = router.route_trace(trace)
+    summ = router.summary()
+    print(f"{cfg.name} router x{args.replicas} on {device}: "
+          f"{len(results)} requests, {summ['total_generated_tokens']} "
+          f"tokens in {summ['makespan_s']:.2f}s makespan "
+          f"({summ['tokens_per_s']:.1f} tok/s), alive {summ['alive']}")
+    if "static_fallback" in summ:
+        print(f"  static fallback: {summ['static_fallback']}")
+    else:
+        print(f"  ttft p50/p95: {summ['ttft_p50_s']:.3f}/"
+              f"{summ['ttft_p95_s']:.3f}s  tpot p50: "
+              f"{summ['tpot_p50_s']:.3f}s")
+    _print_serving(summ)
     _print_planning(store)
 
 

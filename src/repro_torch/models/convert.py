@@ -11,9 +11,14 @@ casts them to the compute dtype at every use (``layers.dense``); the
 port casts them once here (``model.PROJECTIONS`` lists them by family:
 attention and MLP weights, RWKV time and channel weights, Mamba2 in and
 out projections, the hybrid's shared block).  The values it multiplies
-are the same.  Everything else keeps the reference's dtype: norms,
-mixes, the RWKV bonus and decay bias, and Mamba2's A_log, D, dt_bias
-and conv taps.
+are the same.  The MoE family's expert banks ``(E, d_in, d_out)`` and
+shared experts go to the compute dtype too, though the reference upcasts
+them to fp32 at every use (``moe.py`` upcasts them per layer call): with
+an fp32 compute dtype the values are the reference's, with bf16 they are
+those of the reference run with ``param_dtype="bfloat16"``.  Everything
+else keeps the reference's dtype: the MoE router (fp32), norms, mixes,
+the RWKV bonus and decay bias, and Mamba2's A_log, D, dt_bias and conv
+taps.
 """
 from __future__ import annotations
 
@@ -48,4 +53,10 @@ def params_from_jax(numpy_tree: dict, cfg: ArchConfig,
         for key in path:
             w = w[key]
         w["w"] = w["w"].to(cdt)
+    moe = params["layers"].get("moe")
+    if moe is not None:
+        for name in ("wg", "wu", "wd"):
+            moe[name] = moe[name].to(cdt)
+        for w in moe.get("shared", {}).values():
+            w["w"] = w["w"].to(cdt)
     return params

@@ -1,14 +1,15 @@
-"""Model assembly for the dense, RWKV-6, Mamba2 and Mamba2-hybrid
+"""Model assembly for the dense, MoE, RWKV-6, Mamba2 and Mamba2-hybrid
 families (the counterpart of the reference's ``models/model.py``).
 
 Parameters keep the reference's pytree layout, with the layer stack on
 axis 0 of every ``params["layers"]`` leaf; the stack runs as a Python
-loop over the layers.  The hybrid (zamba2) applies one weight-shared
-attention+MLP block after every ``attn_every`` Mamba2 layers, with a KV
-cache per application.  Entry points are functions of (params, batch[,
-cache]) as in the reference.  The MoE, encoder-decoder and VLM families,
-sliding windows and softcaps come with later slices of the port and
-raise here.
+loop over the layers.  An MoE layer is a dense layer whose MLP is the
+mixture of experts (``moe.py``).  The hybrid (zamba2) applies one
+weight-shared attention+MLP block after every ``attn_every`` Mamba2
+layers, with a KV cache per application.  Entry points are functions of
+(params, batch[, cache]) as in the reference.  The encoder-decoder and
+VLM families, sliding windows and softcaps are not ported yet and raise
+here.
 """
 from __future__ import annotations
 
@@ -19,17 +20,22 @@ import torch
 
 from ..configs.base import ArchConfig
 from . import layers as L
+from . import moe as MOE
 from . import rwkv as RW
 from . import ssm as SSM
 
 # the projection weights by family, as key paths from the root of the
 # parameter tree: the reference casts them to the compute dtype at every
-# use (layers.dense), the port once when they are made or converted
-_ATTN_MLP = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
-             ("mlp", "wg"), ("mlp", "wu"), ("mlp", "wd"))
+# use (layers.dense), the port once when they are made or converted.  The
+# MoE family's expert banks and shared experts are not among them: the
+# reference upcasts those to fp32 at every use, the port stores them in
+# the compute dtype and upcasts them per layer call (moe.py, convert.py)
+_ATTN = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"))
+_ATTN_MLP = _ATTN + (("mlp", "wg"), ("mlp", "wu"), ("mlp", "wd"))
 _SSM = (("layers", "ssm", "in_proj"), ("layers", "ssm", "out_proj"))
 PROJECTIONS = {
     "dense": tuple(("layers",) + w for w in _ATTN_MLP),
+    "moe": tuple(("layers",) + w for w in _ATTN),
     "rwkv": tuple(("layers", "time", w)
                   for w in ("wr", "wk", "wv", "wg", "ww", "wo"))
     + tuple(("layers", "chan", w) for w in ("wk", "wv", "wr")),
@@ -60,8 +66,8 @@ class Model:
         if cfg.family not in PROJECTIONS:
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-                f"(the port serves {', '.join(PROJECTIONS)}; moe, encdec "
-                f"and vlm come later)")
+                f"(the port serves {', '.join(PROJECTIONS)}; encdec and "
+                f"vlm are not ported yet)")
         if cfg.window or cfg.alt_local_global or cfg.attn_softcap or \
                 cfg.logit_softcap:
             raise NotImplementedError(
@@ -76,9 +82,9 @@ class Model:
         projections with std 1/sqrt(d_in), embeddings with std 0.02,
         unit norm scales; RWKV mixes 0.5, bonus 0 and decay bias -6;
         Mamba2 conv taps with std 1/sqrt(K), A_log 0, D 1, dt_bias 0.
-        Projection weights are made in the compute dtype, the bonus,
-        decay bias, A_log, D and dt_bias in fp32, the rest in the
-        parameter dtype."""
+        Projection weights, expert banks and shared experts are made in
+        the compute dtype, the MoE router, the bonus, decay bias, A_log,
+        D and dt_bias in fp32, the rest in the parameter dtype."""
         cfg = self.cfg
         pdt, cdt = L.dtype_of(cfg.param_dtype), L.dtype_of(cfg.compute_dtype)
         f32 = torch.float32
@@ -98,23 +104,27 @@ class Model:
         def norm(shape):
             return {"scale": full(shape, 1.0, pdt)}
 
-        def attn_mlp(lead):
+        def attn_mlp(lead, moe=False):
             hq = cfg.n_heads * cfg.head_dim
             hkv = cfg.kv_heads * cfg.head_dim
-            return {"ln1": norm(lead + (d,)),
-                    "attn": {"wq": proj(d, hq, lead), "wk": proj(d, hkv, lead),
-                             "wv": proj(d, hkv, lead),
-                             "wo": proj(hq, d, lead)},
-                    "ln2": norm(lead + (d,)),
-                    "mlp": {"wg": proj(d, cfg.d_ff, lead),
-                            "wu": proj(d, cfg.d_ff, lead),
-                            "wd": proj(cfg.d_ff, d, lead)}}
+            lp = {"ln1": norm(lead + (d,)),
+                  "attn": {"wq": proj(d, hq, lead), "wk": proj(d, hkv, lead),
+                           "wv": proj(d, hkv, lead),
+                           "wo": proj(hq, d, lead)},
+                  "ln2": norm(lead + (d,))}
+            if moe:
+                lp["moe"] = MOE.moe_init(normal, cfg, lead, cdt)
+            else:
+                lp["mlp"] = {"wg": proj(d, cfg.d_ff, lead),
+                             "wu": proj(d, cfg.d_ff, lead),
+                             "wd": proj(cfg.d_ff, d, lead)}
+            return lp
 
         p = {"embed": {"e": normal((cfg.padded_vocab, d), 0.02, pdt)},
              "final_norm": norm((d,))}
         fam = cfg.family
-        if fam == "dense":
-            p["layers"] = attn_mlp((n,))
+        if fam in ("dense", "moe"):
+            p["layers"] = attn_mlp((n,), moe=fam == "moe")
         elif fam == "rwkv":
             nh, hd = RW.rwkv_dims(cfg)
             p["layers"] = {
@@ -170,9 +180,10 @@ class Model:
 
     # ------------------------------------------------------ layer stack
     def _attn_block(self, lp, x, positions, *, cache=None, cache_index=None):
-        """Pre-norm attention and gated MLP with residuals: a dense layer,
-        or the hybrid's shared block.  ``cache`` {"k", "v"} is updated in
-        place."""
+        """Pre-norm attention and gated MLP (or mixture of experts) with
+        residuals: a dense or MoE layer, or the hybrid's shared block.
+        ``cache`` {"k", "v"} is updated in place.  The MoE layer's aux
+        loss is a training term; serving drops it."""
         cfg = self.cfg
         h, _ = L.attention_apply(
             lp["attn"], L.apply_norm(lp["ln1"], x, cfg.norm),
@@ -180,8 +191,11 @@ class Model:
             head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
             q_positions=positions, cache=cache, cache_index=cache_index)
         x = x + h
-        h = L.mlp_apply(lp["mlp"], L.apply_norm(lp["ln2"], x, cfg.norm),
-                        use_fused=cfg.fused_mlp)
+        y = L.apply_norm(lp["ln2"], x, cfg.norm)
+        if "moe" in lp:
+            h, _ = MOE.moe_apply(lp["moe"], cfg, y)
+        else:
+            h = L.mlp_apply(lp["mlp"], y, use_fused=cfg.fused_mlp)
         return x + h
 
     def _forward_stack(self, params, x, positions, *, caches=None,
@@ -193,7 +207,7 @@ class Model:
         fresh cache's zeros are passed down as None, so the scans can
         take their kernels (B3, B4), as ``use_pallas_scan`` means."""
         fam = self.cfg.family
-        if fam == "dense":
+        if fam in ("dense", "moe"):
             for i in range(self.cfg.layers):
                 cache = (None if caches is None
                          else {"k": caches["k"][i], "v": caches["v"][i]})
@@ -280,12 +294,12 @@ class Model:
         B, S = tokens.shape
         offs = torch.arange(S, device=tokens.device)
         if isinstance(index, torch.Tensor):
-            if self.cfg.family != "dense":
+            if self.cfg.family not in ("dense", "moe"):
                 raise ValueError(
                     f"{self.cfg.name}: per-row positions need a pure KV "
                     f"cache; the {self.cfg.family!r} family carries "
                     f"recurrent state that the continuous scheduler "
-                    f"cannot slot (it serves dense models)")
+                    f"cannot slot (it serves dense and MoE models)")
             index = index.to(torch.int64)
             pos = index[:, None] + offs[None, :]
         else:
@@ -301,7 +315,8 @@ class Model:
         """Zeroed caches in the reference's layout: KV caches stacked on
         the layer axis (dense) or on the group axis (the hybrid's shared
         block); RWKV state and shift carries on the layer axis; Mamba2
-        states and conv carries on (group, layer in group)."""
+        states and conv carries on (group, layer in group).  The MoE
+        family's cache is the dense one."""
         cfg = self.cfg
         dt = L.dtype_of(cfg.compute_dtype)
         f32 = torch.float32
@@ -314,7 +329,7 @@ class Model:
             shape = (n_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
             return {"k": zeros(shape), "v": zeros(shape)}
 
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             return {"layers": kv(n)}
         if cfg.family == "rwkv":
             nh, hd = RW.rwkv_dims(cfg)

@@ -16,8 +16,9 @@ points plan every tiling a deployment will dispatch ahead of traffic,
 through the store, for the H100 (``core.hopper_mapping``); serving then
 resolves every kernel plan with zero solver calls.
 
-Not ported yet: ``verify_step`` (speculative decoding, with the router),
-and ``prewarm_plans(source="capture")`` (program capture, ROADMAP A10).
+``verify_step`` is speculative decoding's batched verify (the router's
+``spec`` module and the scheduler's spec decode).  Not ported yet:
+``prewarm_plans(source="capture")`` (program capture, ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -103,6 +104,32 @@ class Engine:
         tokens = torch.as_tensor(tokens, device=self.device)
         positions = torch.as_tensor(positions, device=self.device)
         return self.model.decode_step(self.params, cache, tokens, positions)
+
+    @torch.inference_mode()
+    def verify_step(self, cache, tokens, positions):
+        """One speculative-verify step: decode ``tokens`` (B, W) — per
+        row, the committed next token followed by W-1 draft tokens — at
+        per-row write positions (B,), returning ``(greedy, finite,
+        cache)``: ``greedy`` (B, W) int32 is the target model's greedy
+        continuation after each input token, ``finite`` (B,) flags rows
+        whose logits stayed finite, both host arrays.  The argmax and the
+        finiteness test run on the device; only the token ids and the
+        flags cross to the host, in one copy, never the (B, W, V)
+        logits.  Greedy token j equals what width-1 decoding would have
+        produced after consuming input tokens 0..j (held in fp32; in
+        bf16 on the card the window's batched products may round
+        otherwise), so accepting drafts while they match ``greedy``
+        keeps the emitted stream that of target-only decoding."""
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        positions = torch.as_tensor(positions, device=self.device).long()
+        logits, cache = self.model.decode_step(self.params, cache, tokens,
+                                               positions)
+        ok = torch.isfinite(logits)
+        greedy = torch.argmax(torch.where(ok, logits, -torch.inf), dim=-1)
+        both = torch.cat([greedy, ok.all(dim=-1).all(dim=-1,
+                                                      keepdim=True)], 1)
+        both = both.cpu().numpy()
+        return both[:, :-1].astype(np.int32), both[:, -1].astype(bool), cache
 
     def insert_row(self, slot_cache, row_cache, slot: int):
         """Graft a B=1 prefill cache into row ``slot`` of the slot cache,

@@ -16,7 +16,15 @@ join a running batch without draining it:
   3. **Decode**: one slot-indexed decode step over all slots (inactive
      rows compute garbage that per-row valid-length masking keeps
      unreadable); each active slot samples its next token, streams it,
-     and is evicted on its stop token or token budget.
+     and is evicted on its stop token or token budget.  With a drafter
+     (``serving.router.spec``) the decode is a batched verify step over
+     (slots, ``spec_width``) windows instead, emitting each row's
+     accepted draft tokens and one more.
+
+With a KV prefix cache (``serving.router.prefix``) admission grafts the
+cached rows of a shared prompt prefix into the prefill cache and skips
+the chunks that would have computed them; every finished prefill offers
+its prefix to the cache.
 
 Outputs are token-identical to running each request alone through the
 static ``Engine.generate`` oracle: chunk padding is causally masked,
@@ -25,11 +33,15 @@ same (token, position) sequence — see tests/test_torch_sched.py.
 
 Where the port differs from the reference:
 
-- Caches are updated in place (one slot cache, one B=1 prefill cache).
+- Caches are updated in place (one slot cache, one B=1 prefill cache; a
+  prefix graft writes into the latter).
 - Host transfers: a decode reads back the sampled tokens and the rows'
   finite flags in one device-to-host copy (an activation does the same
-  for its first token).  The chaos poison (``kernel.nan_row``) is
-  written into the logits on the device before that copy.
+  for its first token, a verify step for its (slots, width) greedy
+  tokens and flags).  The chaos poison (``kernel.nan_row``) is written
+  into the logits on the device before that copy; in a verify step it
+  clears the row's flag, as in the reference.  A prefix-cache insert
+  copies the prefix rows to the host once per stored entry.
 - Temperature sampling draws each (request, token) from its own
   ``torch.Generator``, seeded from ``(rng_seed, req_id, token_idx)``, so
   a stream does not depend on what else is scheduled; it follows the
@@ -41,10 +53,21 @@ Where the port differs from the reference:
   traffic makes zero solver calls.  The reference's default source,
   "capture", reads the shapes off traced programs; program capture is not
   ported yet (ROADMAP A10), so a deployment that would prewarm through it
-  is refused.  ``mesh_chips > 1`` prewarms the store's sharded section;
-  serving itself runs on one device (a mesh is ROADMAP A13).  Every
-  ``SchedConfig`` field is kept with its default; setting one whose
-  machinery is not ported raises NotImplementedError (``UNPORTED``).
+  is refused.  With a drafter, the reference takes the verify windows'
+  GEMM groups from the capture (``captured_spec_plan_shape_groups``); the
+  port takes them from the extraction tables
+  (``planner.batch.bucketed_spec_plan_shape_groups``, the reference's own
+  enumerated counterpart), and with the fused MLP adds each window's
+  chain group (the chains of a ``slots * spec_width``-row decode), so the
+  verify steps resolve every plan from the prewarm.  A draft model's own
+  programs are not in the tables (they are keyed by arch id, and the
+  scheduler knows only the target's): they plan at first dispatch.  A
+  replica built with the router's ``plan_groups`` / ``chain_groups``
+  skips the prewarm and resolves from the donor's.  ``mesh_chips > 1``
+  prewarms the store's sharded section; serving itself runs on one device
+  (a mesh is ROADMAP A13).  Every ``SchedConfig`` field is kept with its
+  default; setting one whose machinery is not ported raises
+  NotImplementedError (``UNPORTED``).
 """
 from __future__ import annotations
 
@@ -144,7 +167,15 @@ class SchedConfig:
     #                                     tick; slower ticks trip
     #                                     sched.watchdog_trips (detection
     #                                     only — the tick still completes)
-    spec_width: int | None = None       # speculative decoding's window
+    spec_width: int | None = None       # with a drafter installed, the
+    #                                     decode phase becomes a batched
+    #                                     verify step over windows of
+    #                                     this width (1 committed token
+    #                                     + spec_width - 1 draft tokens
+    #                                     per row); accepted tokens are
+    #                                     the target model's own greedy
+    #                                     continuations.  Requires greedy
+    #                                     sampling (temperature == 0).
 
 
 # what a caller may set whose machinery is not ported yet: its name, a
@@ -153,19 +184,10 @@ class SchedConfig:
 UNPORTED = (
     ("SchedConfig.prewarm_source='capture'",
      lambda cfg, kw: cfg.prewarm_source == "capture"
+     and kw["plan_groups"] is None
      and (kw["arch_id"] is not None or kw["plan_store"] is not None),
      "A10 (program capture); pass prewarm_source='enumerated' and an "
      "arch_id"),
-    ("SchedConfig.spec_width", lambda cfg, kw: cfg.spec_width is not None,
-     "A8 (speculative decoding)"),
-    ("prefix_cache", lambda cfg, kw: kw["prefix_cache"] is not None,
-     "A8 (the KV prefix cache)"),
-    ("drafter", lambda cfg, kw: kw["drafter"] is not None,
-     "A8 (speculative decoding)"),
-    ("plan_groups / chain_groups",
-     lambda cfg, kw: kw["plan_groups"] is not None
-     or kw["chain_groups"] is not None,
-     "A8 (the router's shared prewarm)"),
 )
 
 
@@ -191,15 +213,33 @@ class ContinuousScheduler:
                  plan_groups: dict | None = None,
                  chain_groups: dict | None = None):
         ensure_supported_family(engine.model.cfg)
-        kw = dict(prefix_cache=prefix_cache, drafter=drafter,
-                  arch_id=arch_id, plan_groups=plan_groups,
-                  chain_groups=chain_groups, plan_store=engine.plan_store)
+        kw = dict(arch_id=arch_id, plan_groups=plan_groups,
+                  plan_store=engine.plan_store)
         for what, is_set, item in UNPORTED:
             if is_set(cfg, kw):
                 raise NotImplementedError(
                     f"{what} is not ported yet: ROADMAP {item}")
         self.engine = engine
         self.cfg = cfg
+        # optional KV prefix cache (serving.router.prefix): admission
+        # grafts cached rows for a shared prompt prefix instead of
+        # re-prefilling them
+        self.prefix_cache = prefix_cache
+        # optional speculative-decoding drafter (serving.router.spec)
+        self.drafter = drafter
+        if drafter is not None:
+            if cfg.temperature > 0.0:
+                raise ValueError(
+                    "speculative decoding requires greedy sampling "
+                    "(temperature == 0): acceptance compares drafts "
+                    "against the target's greedy continuation")
+            if cfg.spec_width is None or cfg.spec_width < 2:
+                raise ValueError(
+                    f"a drafter needs spec_width >= 2 (1 committed + "
+                    f">= 1 draft token per window), got "
+                    f"{cfg.spec_width!r}")
+        self._lookahead = (cfg.spec_width - 1) if drafter is not None \
+            else 0
         self.buckets = BucketSpec(cfg.chunk_widths)
         self.slots = SlotManager(cfg.slots)
         self.queue: collections.deque[Request] = collections.deque()
@@ -243,7 +283,15 @@ class ContinuousScheduler:
         # single-point and the selected mapping IS the energy-optimal one
         # — token streams and stored plan identities are unchanged.
         self.slo_points: dict[tuple[int, int, int], object] = {}
-        if arch_id is not None:
+        # a replica constructed with explicit ``plan_groups`` (the
+        # router's shared one-pass prewarm) skips both derivation and
+        # planning: the donor replica already pushed every group through
+        # the store / in-process plan cache, so this replica only needs
+        # the group dicts for its per-phase ``_resolve_plans`` calls
+        if plan_groups is not None:
+            self._plan_groups = dict(plan_groups)
+            self._chain_groups = dict(chain_groups or {})
+        elif arch_id is not None:
             self.prewarmed_plans = self._prewarm(arch_id)
 
     # ------------------------------------------------------------ plan DB
@@ -254,18 +302,29 @@ class ContinuousScheduler:
         solve cold at first dispatch), so each failure is logged, counted
         (``sched.prewarm_failures``) and skipped."""
         from ...planner.batch import (bucketed_serving_fused_chain_groups,
-                                      bucketed_serving_plan_shape_groups)
+                                      bucketed_serving_plan_shape_groups,
+                                      bucketed_spec_plan_shape_groups)
+        spec = self.drafter is not None and self.cfg.spec_width is not None
         if getattr(self.engine.model.cfg, "fused_mlp", False):
             # a fused-MLP model dispatches one chain plan per bucket
             # group instead of the per-GEMM gate/up/down tilings; chains
             # derive from the engine's *own* model config so prewarm
-            # matches dispatch even for smoke/reduced variants
+            # matches dispatch even for smoke/reduced variants.  A verify
+            # window of width W runs the chains of a slots * W-row decode
             try:
                 self._chain_groups = bucketed_serving_fused_chain_groups(
                     arch_id, slots=self.cfg.slots,
                     chunk_widths=self.buckets.chunk_widths,
                     cache_len=self.engine.cfg.cache_len,
                     cfg=self.engine.model.cfg)
+                if spec:
+                    w = self.cfg.spec_width
+                    self._chain_groups[f"verify{w}"] = \
+                        bucketed_serving_fused_chain_groups(
+                            arch_id, slots=self.cfg.slots * w,
+                            chunk_widths=(),
+                            cache_len=self.engine.cfg.cache_len,
+                            cfg=self.engine.model.cfg)["decode"]
             except Exception as e:
                 self._chain_groups = {}
                 _REG.inc("sched.prewarm_failures")
@@ -297,6 +356,21 @@ class ContinuousScheduler:
             _REG.inc("sched.prewarm_failures")
             _LOG.warning("plan-group derivation failed (%s: %s); GEMMs "
                          "will solve at dispatch", type(e).__name__, e)
+        if spec:
+            # speculative decoding dispatches the batched verify program:
+            # its GEMM group from the extraction tables (the reference
+            # reads it off the captured program), same bounded-group
+            # treatment and failure policy as the chunk widths
+            try:
+                self._plan_groups.update(bucketed_spec_plan_shape_groups(
+                    arch_id, batch=self.cfg.slots,
+                    spec_widths=(self.cfg.spec_width,),
+                    cache_len=self.engine.cfg.cache_len))
+            except Exception as e:
+                _REG.inc("sched.prewarm_failures")
+                _LOG.warning("spec plan-group derivation failed (%s: %s)"
+                             "; verify GEMMs will solve at dispatch",
+                             type(e).__name__, e)
         planned = 0
         seen: set[tuple[int, int, int]] = set()
         for group, shapes in self._plan_groups.items():
@@ -370,7 +444,8 @@ class ContinuousScheduler:
         ``shed_on_full`` is set — then the request is shed with an
         explicit terminal REJECTED result (returned, recorded, and
         streamed through ``on_finish`` like any other completion)."""
-        self.engine.validate_capacity(req.prompt_len, req.max_new_tokens)
+        self.engine.validate_capacity(req.prompt_len, req.max_new_tokens,
+                                      lookahead=self._lookahead)
         padded = self.buckets.padded_len(req.prompt_len)
         if padded > self.engine.cfg.cache_len:
             raise ValueError(
@@ -482,11 +557,23 @@ class ContinuousScheduler:
             padded_len = self.buckets.padded_len(req.prompt_len)
             buf = np.zeros((1, padded_len), np.int32)
             buf[0, :req.prompt_len] = req.tokens
+            chunks = self.buckets.plan_chunks(req.prompt_len)
+            if self.prefix_cache is not None:
+                # KV prefix reuse: a cached prefix of P tokens (always a
+                # full-chunk boundary, always < prompt_len) is grafted
+                # into the prefill cache and its chunks are skipped —
+                # the remaining chunks read the grafted rows through
+                # attention exactly as if they had just been prefilled
+                # (KV at position i depends only on tokens <= i)
+                hit = self.prefix_cache.lookup(req.tokens)
+                if hit is not None:
+                    p, entry = hit
+                    self.prefix_cache.graft(self._prefill_cache, entry)
+                    chunks = [c for c in chunks
+                              if c.start + c.width > p]
+                    _REG.inc("sched.prefix_tokens_reused", p)
             self._prefill = _Prefill(
-                slot=slot,
-                chunks=collections.deque(
-                    self.buckets.plan_chunks(req.prompt_len)),
-                padded=buf)
+                slot=slot, chunks=collections.deque(chunks), padded=buf)
             _REG.inc("sched.admitted")
             tr = get_tracer()
             if tr is not None:
@@ -520,7 +607,10 @@ class ContinuousScheduler:
         active = [s for s in self.slots.busy()
                   if self._prefill is None or s is not self._prefill.slot]
         decoded = False
-        if active:
+        if active and self.drafter is not None:
+            decoded = True
+            active = self._decode_spec(active)
+        elif active:
             decoded = True
             with _span("sched.decode_batch", rows=len(active),
                        slots=len(self.slots)):
@@ -559,6 +649,65 @@ class ContinuousScheduler:
             chunks=chunks_run, padded_tokens=padded_tokens,
             padded_rows=padded_rows)
         self.metrics.finished_s = self.clock()
+
+    # ------------------------------------------------- speculative decode
+    def _decode_spec(self, active: list[Slot]) -> list[Slot]:
+        """One speculative decode round: a batched verify step over a
+        (slots, spec_width) window — per active row the committed next
+        token followed by spec_width - 1 drafted tokens — then per-row
+        greedy acceptance.  The emitted tokens are the *target* model's
+        own greedy continuations (greedy token j of the verify output is
+        what width-1 decoding would produce after consuming window tokens
+        0..j); drafts only decide how many of them commit this round.
+        Rejected draft positions hold stale KV that per-row valid-length
+        masking hides until the write frontier reclaims them — the same
+        invariant that keeps recycled slot rows and bucket padding
+        invisible.  Returns the surviving rows."""
+        w = self.cfg.spec_width
+        k = w - 1
+        tokens = np.zeros((len(self.slots), w), np.int64)
+        drafts: dict[int, list[int]] = {}
+        for slot in active:
+            ctx = list(slot.req.tokens) + slot.tokens
+            d = [int(t) for t in self.drafter.propose(ctx, k)][:k]
+            while len(d) < k:                 # short proposals padded —
+                d.append(d[-1] if d else      # a wrong draft just stops
+                         int(self._cur[slot.idx]))    # acceptance early
+            drafts[slot.idx] = d
+            tokens[slot.idx, 0] = self._cur[slot.idx]
+            tokens[slot.idx, 1:] = d
+        with _span("sched.verify_batch", rows=len(active), width=w,
+                   slots=len(self.slots)):
+            greedy, finite, _ = self.engine.verify_step(
+                self.slot_cache, tokens, self._pos)
+            hit = inject("kernel.nan_row")
+            if hit is not None:     # chaos: poison one active row — the
+                finite[active[hit.index % len(active)].idx] = False
+        now = self.clock()          # guard below must evict it
+        for slot in [s for s in active if not finite[s.idx]]:
+            self._evict_errored(slot, now)
+        active = [s for s in active if finite[s.idx]]
+        now = self.clock()
+        for slot in active:
+            idx = slot.idx
+            m = 0
+            while m < k and drafts[idx][m] == int(greedy[idx, m]):
+                m += 1
+            _REG.inc("sched.spec.rounds")
+            _REG.inc("sched.spec.drafted", k)
+            _REG.inc("sched.spec.accepted", m)
+            for tok in greedy[idx, :m + 1]:
+                self._pos[idx] += 1
+                self._cur[idx] = int(tok)
+                slot.next_token = int(tok)
+                self._emit(slot, int(tok), now)
+                if slot.free:
+                    break           # stop token / budget hit mid-window
+        _REG.inc("sched.decode_steps")
+        _REG.inc("sched.padded_decode_rows",
+                 len(self.slots) - len(active))
+        self._resolve_plans(f"verify{w}")
+        return active
 
     # ------------------------------------------------------ fault isolation
     def _guard_rows(self, finite: np.ndarray,
@@ -617,6 +766,11 @@ class ContinuousScheduler:
         tok = int(tok[0])
         self.engine.insert_row(self.slot_cache, self._prefill_cache,
                                slot.idx)
+        if self.prefix_cache is not None:
+            # the completed prefill's rows are exact KV for this prompt:
+            # offer its full-chunk prefix to future shared-prefix
+            # admissions (the cache dedups / LRU-evicts internally)
+            self.prefix_cache.insert(req.tokens, self._prefill_cache)
         self._pos[slot.idx] = req.prompt_len
         self._cur[slot.idx] = tok
         slot.next_token = tok
@@ -658,9 +812,9 @@ class ContinuousScheduler:
 
     # ----------------------------------------------------------- failover
     def evacuate(self) -> list[Request]:
-        """Replica-failure drain (the router's failover, ROADMAP A8):
-        every *queued* request — nothing
-        user-visible happened for those — is handed back for re-routing,
+        """Replica-failure drain (the router's failover): every *queued*
+        request — nothing user-visible happened for those — is handed
+        back for re-routing,
         the in-flight prefill (no token emitted either) likewise, and
         decode slots that already streamed tokens are evicted as ERRORED
         with their streamed prefix kept (still oracle-identical —

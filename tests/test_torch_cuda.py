@@ -424,3 +424,149 @@ def test_cuda_b1_with_a_store_plan_equals_the_in_process_plan(
         assert torch.equal(got, want)
     finally:
         hm.set_plan_store(None)
+
+
+# ---------------------------------------------- the MoE family, scale-out
+def _moe_model(dispatch="dense"):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b", smoke=True),
+                              moe_dispatch=dispatch)
+    model = build_model(cfg)
+    return model, model.init_params(torch.Generator().manual_seed(0), "cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispatch", ["dense", "gathered"])
+def test_cuda_moe_apply_matches_cpu(cuda_device, dispatch):
+    """One MoE layer on the card against the CPU within 1e-5, and the
+    gathered dispatch's bits the same in two runs (its combine sums each
+    token's contributions in a fixed order, no atomic adds)."""
+    from repro_torch.models import moe
+    from repro_torch.models.model import index_tree, tree_to
+    model, params = _moe_model(dispatch)
+    p = index_tree(params["layers"], 0)["moe"]
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (4, 33, model.cfg.d_model)).astype(np.float32))
+    want, aux = moe.moe_apply(p, model.cfg, x)
+    pc = tree_to(p, cuda_device)
+    got, caux = moe.moe_apply(pc, model.cfg, x.to(cuda_device))
+    again, _ = moe.moe_apply(pc, model.cfg, x.to(cuda_device))
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-5, atol=1e-5)
+    assert abs(float(caux) - float(aux)) < 1e-5
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_scheduler_streams_equal_cpu(cuda_device):
+    """deepseek-moe-16b smoke behind the scheduler on the card: the CPU
+    run's streams, and no GOMA kernel launched (the family has no dense
+    MLP)."""
+    from repro_torch.kernels.goma_fused import goma_fused_matmul
+    from repro_torch.models.model import tree_to
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving.sched import (ContinuousScheduler, SchedConfig,
+                                           TrafficConfig, poisson_trace)
+    model, params = _moe_model()
+    reqs = poisson_trace(TrafficConfig(
+        n_requests=4, prompt_mix=((3, 20, 1.0),), max_new_tokens=5,
+        vocab=model.cfg.vocab))
+
+    def run(p):
+        sched = ContinuousScheduler(Engine(model, p,
+                                           ServeConfig(cache_len=48)),
+                                    SchedConfig(slots=2, chunk_widths=(4,
+                                                                       16)))
+        return {r.req_id: r.tokens for r in sched.run(reqs)}
+
+    kernels = (goma_matmul, goma_fused_matmul, goma_combine)
+    before = [k.launches for k in kernels]
+    got = run(tree_to(params, cuda_device))
+    assert [k.launches for k in kernels] == before
+    assert got == run(params)
+
+
+@pytest.mark.cuda
+def test_cuda_verify_step_matches_cpu(cuda_device):
+    """Engine.verify_step on the card (through B2) against the CPU: the
+    same greedy ids and finite flags, host arrays out."""
+    from repro_torch.kernels.goma_fused import goma_fused_matmul
+    from repro_torch.models.model import tree_to
+    from repro_torch.serving import Engine, ServeConfig
+    model, params = _smoke_model()
+    rng = np.random.default_rng(5)
+    cpu = Engine(model, params, ServeConfig(cache_len=32))
+    card = Engine(model, tree_to(params, cuda_device),
+                  ServeConfig(cache_len=32))
+    cache = cpu.new_cache(3)
+    for k in ("k", "v"):
+        cache["layers"][k].copy_(torch.from_numpy(
+            rng.standard_normal(cache["layers"][k].shape).astype(np.float32)))
+    card_cache = tree_to(cache, cuda_device)
+    tokens = rng.integers(0, model.cfg.vocab, (3, 4))
+    pos = np.array([2, 9, 20])
+    before = goma_fused_matmul.launches
+    greedy, finite, _ = card.verify_step(card_cache, tokens, pos)
+    assert goma_fused_matmul.launches == before + model.cfg.layers
+    want, want_finite, _ = cpu.verify_step(cache, tokens, pos)
+    np.testing.assert_array_equal(greedy, want)
+    np.testing.assert_array_equal(finite, want_finite)
+
+
+@pytest.mark.cuda
+def test_cuda_spec_generate_equals_cpu_and_oracle(cuda_device):
+    """spec_generate with the n-gram drafter on the card: the card's
+    static greedy stream and the CPU's spec stream."""
+    from repro_torch.models.model import tree_to
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving.router import NgramDrafter, spec_generate
+    model, params = _smoke_model()
+    prompt = np.random.default_rng(1).integers(0, model.cfg.vocab, (16,))
+    card = Engine(model, tree_to(params, cuda_device),
+                  ServeConfig(max_new_tokens=16, cache_len=48))
+    got = spec_generate(card, prompt, NgramDrafter(), max_new_tokens=16)
+    want = card.generate(prompt[None])[0]
+    cpu = spec_generate(Engine(model, params, ServeConfig(cache_len=48)),
+                        prompt, NgramDrafter(), max_new_tokens=16)
+    assert list(got) == list(want) == list(cpu)
+
+
+@pytest.mark.cuda
+def test_cuda_prefix_graft_and_router_equal_cpu(cuda_device):
+    """Two replicas with a shared prefix cache and spec decoding on the
+    card: the CPU run's streams, prefix hits, and the grafted rows bitwise
+    the rows the prefix's chunks compute in a fresh cache on the card."""
+    from repro_torch.models.model import tree_to
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving.router import (NgramDrafter, PrefixCache,
+                                            ReplicaRouter, RouterConfig)
+    from repro_torch.serving.sched import (SchedConfig, TrafficConfig,
+                                           shared_prefix_trace)
+    model, params = _smoke_model()
+    reqs = shared_prefix_trace(TrafficConfig(
+        n_requests=6, arrival_rate=40.0, prompt_mix=((3, 12, 1.0),),
+        max_new_tokens=6, vocab=model.cfg.vocab, seed=3), prefix_len=16)
+
+    def run(p):
+        pc = PrefixCache(16)
+        router = ReplicaRouter(
+            Engine(model, p, ServeConfig(cache_len=48)),
+            RouterConfig(replicas=2, sched=SchedConfig(
+                slots=2, chunk_widths=(4, 16), spec_width=3)),
+            prefix_cache=pc, drafter=NgramDrafter())
+        return pc, {r.req_id: r.tokens for r in router.route_trace(reqs)}
+
+    card_params = tree_to(params, cuda_device)
+    pc, got = run(card_params)
+    assert got == run(params)[1]
+    p, entry = pc.lookup(reqs[0].tokens)
+    eng = Engine(model, card_params, ServeConfig(cache_len=48))
+    grafted = pc.graft(eng.new_cache(1), entry)
+    fresh = eng.new_cache(1)
+    with torch.inference_mode():
+        eng.prefill_chunk(fresh, reqs[0].tokens[None, :p], 0)
+    for k in ("k", "v"):
+        assert torch.equal(grafted["layers"][k][:, :, :p],
+                           fresh["layers"][k][:, :, :p])

@@ -28,7 +28,9 @@ def test_modules_found():
     assert "repro_torch.launch.serve" in MODULES
     for m in ("kernels.wkv6", "kernels.mamba2_ssd", "models.rwkv",
               "models.ssm", "serving.sched.scheduler", "planner.store",
-              "planner.batch", "planner.cli", "plan", "dist.mesh_solve"):
+              "planner.batch", "planner.cli", "plan", "dist.mesh_solve",
+              "models.moe", "serving.router", "serving.router.router",
+              "serving.router.prefix", "serving.router.spec"):
         assert f"repro_torch.{m}" in MODULES
     assert len(MODULES) >= 30
 
@@ -49,9 +51,14 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
 def test_no_source_imports_jax_or_the_reference():
     pat = re.compile(r"^\s*(import jax|from jax\b|import repro\b(?!_)|"
                      r"from repro\.|from repro\s+import)", re.M)
+    scanned = set()
     for p in PKG.rglob("*"):
         if p.is_file() and p.suffix in (".py", ".cu", ".cuh"):
             assert not pat.search(p.read_text()), p
+            scanned.add(p.relative_to(PKG).as_posix())
+    assert {"models/moe.py", "serving/router/__init__.py",
+            "serving/router/router.py", "serving/router/prefix.py",
+            "serving/router/spec.py"} <= scanned
 
 
 def test_serve_without_a_card_exits_nonzero():
@@ -104,6 +111,40 @@ def test_continuous_serve_on_cpu_when_asked():
     assert "ttft p50/p95" in res.stdout
 
 
+def test_moe_continuous_serve_on_cpu_when_asked():
+    res = _run("", "-m", "repro_torch.launch.serve", "--arch",
+               "deepseek-moe-16b", "--smoke", "--continuous", "--requests",
+               "3", "--prompt-len", "12", "--new-tokens", "3", "--device",
+               "cpu")
+    assert res.returncode == 0, res.stderr
+    assert "deepseek-moe-16b-smoke continuous on cpu: 3 requests, 9 " \
+        "tokens" in res.stdout
+
+
+def test_scaleout_serve_on_cpu_when_asked(tmp_path):
+    """Two replicas, a prefix cache, the n-gram drafter at width 4 and a
+    plan store: the fleet serves every request, and a second run on the
+    store, prewarmed once by its donor, puts nothing and makes no solver
+    call; without --device cpu and without a card the same command exits
+    non-zero."""
+    args = ["-m", "repro_torch.launch.serve", "--arch", "llama3-8b",
+            "--smoke", "--continuous", "--fused-mlp", "--replicas", "2",
+            "--prefix-cache", "16", "--draft-model", "ngram",
+            "--spec-width", "4", "--requests", "6", "--prompt-len", "40",
+            "--new-tokens", "4", "--plan-db", str(tmp_path),
+            "--prewarm-source", "enumerated"]
+    for _ in range(2):
+        res = _run("", *args, "--device", "cpu")
+        assert res.returncode == 0, res.stderr
+        assert "llama3-8b-smoke router x2 on cpu: 6 requests, 24 tokens" \
+            in res.stdout
+        assert "sched.spec.rounds" in res.stdout
+    assert res.stdout.count("'puts': 0") == 2
+    assert "solver calls: 0" in res.stdout
+    res = _run("", *args)
+    assert res.returncode != 0 and "--device cpu" in res.stderr
+
+
 def test_init_params_on_a_missing_card_raises():
     code = ("import torch\n"
             "from repro_torch.configs import get_config\n"
@@ -127,6 +168,7 @@ COPIED = ["faults.py", "configs/__init__.py", "configs/base.py",
           "dist/__init__.py", "dist/mesh_solve.py",
           "planner/manifest.py", "planner/store.py",
           "obs/registry.py", "obs/tracing.py",
+          "serving/router/__init__.py", "serving/router/router.py",
           *(f"serving/sched/{m}.py" for m in ("__init__", "requests",
                                               "buckets", "slots", "metrics",
                                               "traffic"))]

@@ -395,10 +395,6 @@ def test_capacity_validation(pair):
 
 UNPORTED_CASES = {
     "SchedConfig.prewarm_source='capture'": ({}, {"arch_id": "llama3-8b"}),
-    "SchedConfig.spec_width": ({"spec_width": 4}, {}),
-    "prefix_cache": ({}, {"prefix_cache": object()}),
-    "drafter": ({}, {"drafter": object()}),
-    "plan_groups / chain_groups": ({}, {"plan_groups": {}}),
 }
 
 
@@ -408,3 +404,24 @@ def test_unported_settings_raise(pair, what, item):
     with pytest.raises(NotImplementedError, match=item[:3]):
         ContinuousScheduler(_engine(pair), SchedConfig(**SCHED, **cfg_kw),
                             **kw)
+
+
+def test_lifted_settings_are_taken(pair):
+    """The scale-out settings that the scheduler refused before the router
+    was ported are taken now: a window width without a drafter (decode
+    stays width 1), a prefix cache, a drafter, and the router's shared
+    plan groups, which a replica takes as they are, without a prewarm;
+    only the capture prewarm source stays refused."""
+    from repro_torch.serving.router import NgramDrafter, PrefixCache
+    engine = _engine(pair)
+    for cfg_kw, kw in (({"spec_width": 4}, {}),
+                       ({}, {"prefix_cache": PrefixCache(16)}),
+                       ({"spec_width": 2}, {"drafter": NgramDrafter()}),
+                       ({}, {"plan_groups": {"decode": [(3, 64, 64)]},
+                             "chain_groups": {}})):
+        sched = ContinuousScheduler(engine, SchedConfig(**SCHED, **cfg_kw),
+                                    **kw)
+        assert sched.prewarmed_plans == 0
+    assert sched._plan_groups == {"decode": [(3, 64, 64)]}
+    assert [w for w, _, _ in UNPORTED] == [
+        "SchedConfig.prewarm_source='capture'"]
