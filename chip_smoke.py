@@ -31,7 +31,19 @@ one's launch counts:
   one donor prewarm with zero solver calls, and a replica killed
   mid-trace) on the smoke config, card == CPU == static oracle; at full
   width two replicas with prefix cache and speculative decoding, B1
-  and ``goma_combine`` at held shapes, and the fp32 gate.
+  and ``goma_combine`` at held shapes, and the fp32 gate;
+- fidelity and calibration (phase 15): the port's ``plan build``
+  manifests of llama3-8b's scheduler deployment and zamba2-2.7b's static
+  path replayed through B1 in bf16 (exact launch counts per dispatched
+  plan, row keys == the store's keys, B1 held at every replayed shape),
+  ``plan calibrate`` and ``plan fidelity`` (the smoke config's captured
+  manifest, fp32) in second processes, each exit code its report's gate;
+- program capture (phase 16): phase 11's deployment prewarmed from the
+  model's own traced programs (no device memory, 0 solver calls and
+  store misses in the first replay, phase 11's streams and launches per
+  pass), and phase 14's smoke fleet with a model drafter prewarmed the
+  same way (the drafter's groups in the store, 0 solver calls, card ==
+  CPU == static oracle).
 
 Imports nothing of JAX and nothing of the reference package.
 
@@ -164,6 +176,30 @@ SPEC_SMOKE_ROWS = tuple(sorted({
 # n-gram drafter at width 4 (verify windows of 8 x 4 = 32 rows)
 SCALEOUT_FULL = dict(replicas=2, prefix_len=128, spec_width=4,
                      cache_len=400, prefix_mib=1024)
+# fidelity (phase 15): the port's `plan build` manifests of phase 11's
+# deployment (its chunk widths as prefill sequences, its slots as the
+# decode batch, its cache) and of the static zamba2-2.7b path (batch x
+# prompt rows, decode batch, a cache of prompt + new tokens + 8, as
+# launch.serve sizes it), replayed through B1 in bf16 with this many
+# warm-up and timed calls per dispatched plan
+FIDELITY = dict(warmup=2, repeats=10, manifests={
+    "llama3-8b": dict(seqs=SCHED_FULL["chunk_widths"],
+                      decode=(SCHED_FULL["slots"],),
+                      cache_len=SCHED_FULL["cache_len"]),
+    "zamba2-2.7b": dict(seqs=(FULL["batch"] * RECURRENT["prompt_len"],),
+                        decode=(FULL["batch"],),
+                        cache_len=RECURRENT["prompt_len"]
+                        + FULL["new_tokens"] + 8)})
+# ... then `plan capture`'s manifest of the llama3-8b smoke config (prefill
+# of batch x prompt and decode against this cache), replayed in fp32 by
+# `plan fidelity` in a second process
+FIDELITY_SMOKE_CACHE = 64
+# the capture-prewarmed smoke fleet (phase 16) runs a model drafter over
+# phase 14's prefix trace: its catch-up chunks re-feed a request's whole
+# context (shared prefix, prompt, the tokens so far and a window), so B2
+# runs at every row count up to this
+CAPTURE_FLEET_ROWS = (SPEC_SMOKE["prefix_len"] + 23 + SCHED_SMOKE["new_tokens"]
+                      + SPEC_SMOKE["spec_width"])
 
 
 @contextlib.contextmanager
@@ -2115,6 +2151,439 @@ PORT_KERNELS = {"goma": "goma_", "b1": "goma_matmul", "wkv6": "wkv6_kernel",
                 "ssd": "ssd_scan_kernel", "ssd_cb": "ssd_cb_kernel"}
 
 
+# ------------------------------------------------------------- phase 15
+def plan_cli(*args: str) -> subprocess.CompletedProcess:
+    """``python -m repro_torch.plan ARGS`` in a second process."""
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.plan", *args], cwd=ROOT,
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+
+
+def cli_ok(res: subprocess.CompletedProcess, rc: int = 0) -> str:
+    """The command's output, or raise unless it exited with ``rc``."""
+    if res.returncode != rc:
+        raise AssertionError(f"{res.args[3:]} exited {res.returncode}, not "
+                             f"{rc}:\n{res.stdout[-2000:]}"
+                             f"{res.stderr[-4000:]}")
+    return res.stdout
+
+
+def family_rows(rep) -> dict:
+    """Each family's rows as the phase prints them: dims, predicted pJ,
+    predicted DRAM bytes, measured ms, and the CTAs B1 launched."""
+    from repro_torch.core.hopper_mapping import plan_gemm_tiling
+    from repro_torch.kernels.goma_gemm import cta_slices, cta_tiles
+    out: dict = {}
+    for r in rep.rows:
+        plan = plan_gemm_tiling(*r.dims, dtype_bytes=2)
+        out.setdefault(r.gemm_type, []).append({
+            "dims": list(r.dims), "predicted_pj": r.predicted_energy,
+            "predicted_dram_bytes": r.predicted_bytes_per_level["dram"],
+            "measured_ms": r.measured_time_s * 1e3,
+            "ctas": len(cta_tiles(plan, cta_slices(plan))),
+            "plan_key": r.plan_key[:12]})
+    return out
+
+
+def fidelity_phase(checked: set, gen, root: pathlib.Path) -> dict:
+    """Fidelity replay and calibration on the card (ROADMAP A9).  The
+    port's ``plan build`` writes FIDELITY's two manifests; each replays
+    through B1 in bf16 (``obs.fidelity.replay_manifest``) on a fresh
+    store: B1's launch count moves by exactly (warm-up + repeats) per
+    distinct dispatched plan key, each row's plan key is the key under
+    which the store holds the plan B1 ran, the rows round-trip through
+    ``record_rows``/``load_rows``, and B1 is held against its plain
+    version at every shape the replays launched it at.  Then the two
+    replays' rows, recorded together, go through ``plan calibrate --save
+    --spec h100-like`` in a second process, and the smoke config's
+    captured manifest through ``plan fidelity`` (fp32) in another: each
+    exit code is its report's gate, and the saved calibration loads.
+    Spearman's rho per family is reported, not held (ROADMAP C8)."""
+    from repro_torch.core import hopper_mapping
+    from repro_torch.obs.calibrate import fit_jsonl, load_calibration
+    from repro_torch.obs.fidelity import (FidelityRow, _finalize_report,
+                                          load_rows, record_rows,
+                                          replay_manifest)
+    from repro_torch.planner import PlanStore
+    from repro_torch.planner.manifest import ModelMappingManifest
+    per_key = FIDELITY["warmup"] + FIDELITY["repeats"]
+    manifests = {}
+    for arch, m in FIDELITY["manifests"].items():
+        path = root / f"{arch}.manifest.json"
+        cli_ok(plan_cli("build", "--arch", arch,
+                        "--seqs", ",".join(map(str, m["seqs"])),
+                        "--decode-batches", ",".join(map(str, m["decode"])),
+                        "--cache-len", str(m["cache_len"]), "--jobs", "4",
+                        "--store", str(root / "build"),
+                        "--manifest", str(path)))
+        manifests[arch] = ModelMappingManifest.load(path)
+    reports, out = {}, {}
+    reset_launches()
+    seen = {}
+    with recording_shapes(seen):
+        for arch, man in manifests.items():
+            store = PlanStore(root / f"replay_{arch}")
+            hopper_mapping.set_plan_store(store)
+            before = launch_counts()["goma_matmul"]
+            t0 = time.perf_counter()
+            rep = replay_manifest(man, dtype="bfloat16",
+                                  warmup=FIDELITY["warmup"],
+                                  repeats=FIDELITY["repeats"])
+            seconds = time.perf_counter() - t0
+            keys = {r.plan_key for r in rep.rows}
+            launched = launch_counts()["goma_matmul"] - before
+            if launched != per_key * len(keys):
+                raise AssertionError(f"{arch}: B1 launched {launched} "
+                                     f"times, not {per_key} x {len(keys)} "
+                                     f"dispatched keys")
+            held = {e.digest: e for e in store.entries()}
+            for r in rep.rows:
+                plan = hopper_mapping.plan_gemm_tiling(*r.dims,
+                                                       dtype_bytes=2)
+                e = held.get(r.plan_key)
+                if e is None or e.gemm_dims != plan.padded or \
+                        tuple(e.mapping.L1) != plan.block:
+                    raise AssertionError(f"{arch} {r.dims}: row key "
+                                         f"{r.plan_key[:12]} is not the "
+                                         f"store's key of B1's plan {plan}")
+            path = record_rows(rep, root / "rows", arch)
+            summary, back = load_rows(path)
+            if [b.to_json() for b in back] != [r.to_json() for r in
+                                               rep.rows] or \
+                    summary["passes"] != rep.passes():
+                raise AssertionError(f"{arch}: rows do not round-trip")
+            reports[arch] = rep
+            out[arch] = {"summary": rep.summary(), "seconds": seconds,
+                         "rows": len(rep.rows), "keys": len(keys),
+                         "launches": per_key * len(keys),
+                         "families": family_rows(rep)}
+    counts = launch_counts()
+    hopper_mapping.set_plan_store(None)
+    for name, shape, dt in sorted(seen):
+        if (name, shape, dt) not in checked:
+            checked.add(checked_key("goma_matmul", check_b1(
+                shape, torch.bfloat16, gen, timed=False)))
+    shapes = held_shapes(seen, counts, checked)
+    # the calibration: both replays' rows in one file, fitted in a second
+    # process; its exit code is the held-out gate of the same fit here
+    cal_root = root / "calibration_store"
+    rows = [FidelityRow.from_json(r.to_json())
+            for rep in reports.values() for r in rep.rows]
+    cal_rows = record_rows(_finalize_report(rows, gate=0.9, min_family=3),
+                           cal_root, "bf16")
+    fit = fit_jsonl(cal_rows)
+    cal_out = cli_ok(plan_cli("calibrate", "--store", str(cal_root),
+                              "--name", "bf16", "--save", "--spec",
+                              "h100-like"), 0 if fit.passes() else 1)
+    saved = load_calibration(cal_root / "calibration" / "calibration.json")
+    if saved.get("h100-like") != fit.model:
+        raise AssertionError(f"saved calibration {saved} != the fit "
+                             f"{fit.model}")
+    # the smoke config's captured manifest, fp32, through `plan fidelity`
+    smoke_man = root / "smoke.manifest.json"
+    cli_ok(plan_cli("capture", "--arch", "llama3-8b", "--smoke",
+                    "--phase", "both", "--seq", str(FULL["prompt_len"]),
+                    "--batch", str(FULL["batch"]), "--cache-len",
+                    str(FIDELITY_SMOKE_CACHE), "--jobs", "4", "--store",
+                    str(root / "build"), "--manifest", str(smoke_man)))
+    smoke_rep = root / "smoke_report.json"
+    res = plan_cli("fidelity", "--manifest", str(smoke_man), "--store",
+                   str(root / "smoke_store"), "--name", "smoke", "--out",
+                   str(smoke_rep))
+    smoke = json.loads(smoke_rep.read_text())
+    cli_ok(res, 0 if smoke["summary"]["passes"] else 1)
+    # the fit as rates: ns/byte per level as GB/s, beside the data sheet's
+    ns_per_byte = fit.model.ns_per_byte
+    out["calibration"] = {
+        "summary": fit.summary(), "holdout_err": fit.holdout_err,
+        "baseline_holdout_err": fit.baseline_holdout_err,
+        "passes": fit.passes(), "cli_rc": 0 if fit.passes() else 1,
+        "ns_per_macc": fit.model.ns_per_macc, "ns_per_byte": ns_per_byte,
+        "effective_gb_per_s": {lvl: (1.0 / v if v > 0 else None)
+                               for lvl, v in ns_per_byte.items()},
+        "hbm_data_sheet_gb_per_s": HBM_BYTES_PER_S / 1e9}
+    out["smoke_fp32"] = {"summary": smoke["summary"],
+                         "cli_rc": res.returncode}
+    for arch, rep in reports.items():
+        print(f"  {arch} (bf16): {out[arch]['rows']} rows, "
+              f"{out[arch]['keys']} dispatched keys, B1 launched "
+              f"{out[arch]['launches']} = {per_key} x "
+              f"{out[arch]['keys']}, {out[arch]['seconds']:.1f} s; "
+              f"Spearman rho per family {rep.families} (overall "
+              f"{rep.overall}); passes {rep.passes()} (reported, not held)")
+        for fam, frs in out[arch]["families"].items():
+            print(f"    {fam}: {json.dumps(frs)}")
+    print(f"  calibration (plan calibrate in a second process, exit "
+          f"{out['calibration']['cli_rc']}): held-out |rel err| "
+          f"calibrated {fit.holdout_err} vs compute-only "
+          f"{fit.baseline_holdout_err}; ns/MAC {fit.model.ns_per_macc}, "
+          f"ns/byte {ns_per_byte}; as rates (GB/s) "
+          f"{out['calibration']['effective_gb_per_s']} beside the data "
+          f"sheet's HBM3 {HBM_BYTES_PER_S / 1e9:.0f} GB/s (H100_LIKE has "
+          f"no bandwidth entry); {cal_out.strip().splitlines()[-1]}")
+    print(f"  smoke manifest (plan capture), fp32 through plan fidelity in "
+          f"a second process: exit {res.returncode}, "
+          f"{smoke['summary']}")
+    return {"launches": counts, "shapes": shapes, "fidelity": out}
+
+
+# ------------------------------------------------------------- phase 16
+def capture_sched_full(checked: set, phase11: dict,
+                       store_dir: pathlib.Path) -> dict:
+    """Phase 11's deployment prewarmed through program capture (ROADMAP
+    A10): a fresh store, the default ``prewarm_source="capture"`` and no
+    arch_id, so the scheduler reads its GEMM groups off the model's own
+    traced programs.  The capture allocates no device memory (the device
+    allocations across construction are the two caches the scheduler
+    makes, one per tensor), its groups
+    differ from the enumerated tables' only where the reference's capture
+    does (GQA-grouped attention products in jax's operand order, and the
+    MLP products behind the opaque fused-MLP kernel), and the first replay
+    makes no solver call and no store miss, launches B1 and goma_combine
+    per pass as phase 11 at shapes phase 3 held, and gives phase 11's
+    streams."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import hopper_mapping
+    from repro_torch.core.solver import reset_solver_stats, solver_stats
+    from repro_torch.models import build_model
+    from repro_torch.obs.registry import get_registry
+    from repro_torch.obs.tracing import Tracer, set_tracer
+    from repro_torch.planner import PlanStore
+    from repro_torch.planner.batch import bucketed_serving_plan_shape_groups
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving.sched import (ContinuousScheduler, SchedConfig,
+                                           TraceClock, replay)
+    cfg = dataclasses.replace(get_config("llama3-8b"), fused_mlp=True)
+    model = build_model(cfg)
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    trace = sched_full_trace(cfg.vocab)
+    scfg = ServeConfig(max_new_tokens=SCHED_FULL["new_tokens"],
+                       cache_len=SCHED_FULL["cache_len"])
+    store = PlanStore(store_dir)
+    failures = get_registry().get("sched.prewarm_failures")
+    clock = TraceClock()
+    tracer = Tracer()
+    prev = set_tracer(tracer)
+    reset_solver_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    t0 = time.perf_counter()
+    try:
+        sched = ContinuousScheduler(
+            Engine(model, params, scfg, plan_store=store),
+            SchedConfig(slots=SCHED_FULL["slots"],
+                        chunk_widths=SCHED_FULL["chunk_widths"]),
+            clock=clock.now)
+    finally:
+        set_tracer(prev)
+    prewarm_s = time.perf_counter() - t0
+    # the device allocations across construction are the scheduler's two
+    # caches (their tensors, one allocation each), nothing of the capture;
+    # the bytes are reported beside them (the allocator rounds blocks up)
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
+    cache_tensors = [*leaves(sched.slot_cache), *leaves(sched._prefill_cache)]
+    peak = torch.cuda.max_memory_allocated() - base
+    caches = sum(t.numel() * t.element_size() for t in cache_tensors)
+    traces = tracer.by_name("capture.trace")
+    capture_s = sum(sp.duration for sp in traces)
+    prewarm = {"seconds": prewarm_s, "capture_seconds": capture_s,
+               "programs": len(traces), "device_allocations": allocs,
+               "cache_tensors": len(cache_tensors), "peak_delta_bytes": peak,
+               "cache_bytes": caches, "solver_calls": solver_stats()["calls"],
+               "prewarmed_plans": sched.prewarmed_plans,
+               "prewarmed_chains": sched.prewarmed_chains,
+               "store": store.stats()}
+    if allocs != len(cache_tensors) or \
+            len(traces) != len(SCHED_FULL["chunk_widths"]) + 1:
+        raise AssertionError(f"the capture allocated device memory or "
+                             f"traced another number of programs: "
+                             f"{prewarm}")
+    # the captured groups against the enumerated tables'
+    enum = bucketed_serving_plan_shape_groups(
+        "llama3-8b", slots=SCHED_FULL["slots"],
+        chunk_widths=SCHED_FULL["chunk_widths"],
+        cache_len=SCHED_FULL["cache_len"])
+    T, hd, G = SCHED_FULL["cache_len"], cfg.head_dim, \
+        cfg.n_heads // cfg.kv_heads
+    ff, d = cfg.d_ff, cfg.d_model
+    apart = {}
+    for group, got in sched._plan_groups.items():
+        # a chunk is one row of W tokens, decode a token in each slot;
+        # attention's products are one per row and KV head (the weight)
+        rows, S = ((SCHED_FULL["slots"], 1) if group == "decode" else
+                   (int(group.removeprefix("chunk")),) * 2)
+        diff = (sorted(set(enum[group]) - set(got)),
+                sorted(set(got) - set(enum[group])))
+        want = (sorted({(rows, T, hd), (rows, hd, T), (rows, ff, d),
+                        (rows, d, ff)}),
+                sorted({(T, S * G, hd), (hd, S * G, T)}))
+        if diff != want:
+            raise AssertionError(f"group {group}: enumerated only, captured "
+                                 f"only {diff}, not {want}")
+        apart[group] = diff
+    reset_solver_stats()
+    misses, hits = store.misses, store.hits
+    torch.cuda.synchronize()
+    reset_launches()
+    seen = {}
+    with recording_shapes(seen):
+        results = replay(sched, trace, clock)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    solves = solver_stats()["calls"]
+    streams = {r.req_id: (r.tokens, r.finish_reason) for r in results}
+    shapes = held_shapes(seen, counts, checked)
+    hopper_mapping.set_plan_store(None)
+    if solves or store.misses != misses or \
+            get_registry().get("sched.prewarm_failures") != failures:
+        raise AssertionError(f"the first replay after the capture prewarm "
+                             f"made {solves} solver calls and "
+                             f"{store.misses - misses} store misses, or a "
+                             f"prewarm failed: {store.stats()}")
+    passes = sched.metrics.prefill_chunks + sched.metrics.decode_steps
+    want = {**{k: 0 for k in counts},
+            "goma_matmul": 3 * cfg.layers * passes,
+            "goma_combine": cfg.layers * passes}
+    if counts != want:
+        raise AssertionError(f"launches {counts} != {want} ({passes} "
+                             f"forward passes; phase 11: "
+                             f"{phase11['launches']})")
+    if streams != phase11["streams"]:
+        raise AssertionError(f"streams after the capture prewarm {streams} "
+                             f"!= phase 11's {phase11['streams']}")
+    summ = sched.metrics.summary()
+    print(f"  capture prewarm: {prewarm_s} s ({capture_s} s tracing "
+          f"{len(traces)} programs of {cfg.layers} layers); device "
+          f"allocations across it {allocs} == the two caches' "
+          f"{len(cache_tensors)} tensors (peak bytes {peak}, the caches' "
+          f"{caches}); {prewarm['solver_calls']} solver calls, "
+          f"{sched.prewarmed_plans} GEMM tilings, {sched.prewarmed_chains} "
+          f"fused chains, store {prewarm['store']}")
+    print(f"  captured vs enumerated groups (enumerated only, captured "
+          f"only; ROADMAP A10): {apart}")
+    print(f"  first replay: solver calls {solves}, store misses "
+          f"{store.misses - misses}, hits {store.hits - hits}; streams == "
+          f"phase 11's; forward passes {passes}, launches {counts}; "
+          f"tokens/s {summ['tokens_per_s']}, ttft p50 {summ['ttft_p50_s']} "
+          f"s, tpot p50 {summ['tpot_p50_s']} s")
+    del sched, model, params, results
+    free_device()
+    return {"launches": counts, "shapes": shapes,
+            "serve": {"prewarm": prewarm, "groups_apart": {
+                g: [list(map(list, x)) for x in v] for g, v in apart.items()},
+                "metrics": summ, "forward_passes": passes,
+                "replay_solver_calls": solves,
+                "replay_store_misses": store.misses - misses}}
+
+
+def capture_fleet_smoke(checked: set, store_dir: pathlib.Path) -> dict:
+    """Phase 14's fleet on llama3-8b's smoke config (2 replicas, prefix
+    cache, spec at width 4) with a model drafter in place of the n-gram
+    one, prewarmed through capture from a fresh store by the donor alone:
+    the drafter's own ``draft.decode``/``draft.chunk`` groups are among
+    the prewarmed groups with every plan in the store, the fleet's replay
+    makes no solver call and no store miss, B2 runs once per layer and
+    pass at shapes phase 3 held, and the streams are card == CPU ==
+    static oracle."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import hopper_mapping
+    from repro_torch.core.solver import reset_solver_stats, solver_stats
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_to
+    from repro_torch.planner import PlanStore
+    from repro_torch.planner.batch import tile_plan_from_store
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving.router import (ModelDrafter, PrefixCache,
+                                            ReplicaRouter, RouterConfig)
+    from repro_torch.serving.sched import SchedConfig
+    cfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
+                              fused_mlp=True)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(SEED), "cpu")
+    dparams = model.init_params(torch.Generator().manual_seed(SEED + 1),
+                                "cpu")
+    reqs = smoke_prefix_trace(cfg.vocab)
+    scfg = ServeConfig(max_new_tokens=SCHED_SMOKE["new_tokens"],
+                       cache_len=SCHED_SMOKE["cache_len"])
+    knobs = dict(slots=SCHED_SMOKE["slots"],
+                 chunk_widths=SCHED_SMOKE["chunk_widths"],
+                 stop_token=SCHED_SMOKE["stop"],
+                 spec_width=SPEC_SMOKE["spec_width"])
+
+    def fleet(p, dp, store):
+        return ReplicaRouter(
+            Engine(model, p, scfg, plan_store=store),
+            RouterConfig(replicas=2, sched=SchedConfig(**knobs)),
+            drafter=ModelDrafter(Engine(model, dp, scfg, plan_store=store)),
+            prefix_cache=PrefixCache(max(SCHED_SMOKE["chunk_widths"])))
+
+    def route(router):
+        return {r.req_id: (r.tokens, r.finish_reason)
+                for r in router.route_trace(reqs)}
+
+    try:
+        cpu = route(fleet(params, dparams, PlanStore(store_dir / "cpu")))
+        hopper_mapping.set_plan_store(None)
+        store = PlanStore(store_dir / "card")
+        card_params = tree_to(params, "cuda")
+        reset_solver_stats()
+        router = fleet(card_params, tree_to(dparams, "cuda"), store)
+        prewarm = {"solver_calls": solver_stats()["calls"],
+                   "puts": store.puts,
+                   "groups": {g: len(v) for g, v in
+                              router.scheds[0]._plan_groups.items()}}
+        draft = {g: v for g, v in router.scheds[0]._plan_groups.items()
+                 if g.startswith("draft.")}
+        want = {"draft.decode", f"draft.chunk{SPEC_SMOKE['spec_width']}"}
+        if set(draft) != want or not store.puts:
+            raise AssertionError(f"the drafter's groups {sorted(draft)} are "
+                                 f"not {sorted(want)}, or nothing was put")
+        for s in {s for v in draft.values() for s in v}:
+            tile_plan_from_store(store, *s, dtype_bytes=4)   # raises if not
+        finite = watch_logits(model)
+        reset_solver_stats()
+        misses = store.misses
+        reset_launches()
+        seen = {}
+        with recording_shapes(seen):
+            card = route(router)
+        launches = launch_counts()
+        solves, missed = solver_stats()["calls"], store.misses - misses
+    finally:
+        hopper_mapping.set_plan_store(None)
+    del model._lm_logits
+    passes = len(finite)
+    want_launches = {**{k: 0 for k in launches},
+                     "goma_fused_matmul": cfg.layers * passes}
+    if launches != want_launches or not all(bool(f) for f in finite):
+        raise AssertionError(f"capture fleet launches {launches} != "
+                             f"{want_launches} ({passes} passes), or "
+                             f"non-finite logits")
+    shapes = held_shapes(seen, launches, checked)
+    if solves or missed:
+        raise AssertionError(f"the fleet made {solves} solver calls and "
+                             f"{missed} store misses after the prewarm")
+    if card != cpu:
+        raise AssertionError(f"card streams {card} != CPU streams {cpu}")
+    oracle = Engine(model, card_params, ServeConfig(
+        cache_len=SCHED_SMOKE["cache_len"]))
+    for req in reqs:
+        if card[req.req_id][0] != oracle_tokens(oracle, req):
+            raise AssertionError(f"request {req.req_id}: {card[req.req_id]}"
+                                 f" != the static oracle's")
+    print(f"  capture-prewarmed fleet with a model drafter: prewarm "
+          f"{prewarm}; the drafter's groups {draft}, every plan in the "
+          f"store; replay solver calls {solves}, store misses {missed}")
+    print(f"  streams card == cpu == static oracle: {card}")
+    print(f"  forward passes {passes}, launches {launches}")
+    return {"launches": launches, "shapes": shapes,
+            "serve": {"prewarm": prewarm, "forward_passes": passes}}
+
+
 def profile_run(fn, smi: str, out: pathlib.Path | None, name: str, *,
                 host_ops: bool = True) -> dict:
     """One more run of fn (a generate, a scheduler replay) under
@@ -2254,6 +2723,12 @@ def main() -> None:
                          *SPEC_SMOKE_ROWS}):
             b2_rows.append(check_b2(M, 128, 64, torch.float32, gen,
                                     timed=True))
+        # ... and, untimed, at every row count phase 16's model drafter
+        # can run it at
+        held_b2 = {r["shape"][0] for r in b2_rows}
+        b2_rows += [check_b2(M, 128, 64, torch.float32, gen, timed=False)
+                    for M in range(1, CAPTURE_FLEET_ROWS + 1)
+                    if M not in held_b2]
         # the composition's combine: an odd fp32 shape, and every served
         # MLP's strip at decode and in the prefill
         combine_rows.append(check_combine((129, 257), torch.float32, gen,
@@ -2371,6 +2846,26 @@ def main() -> None:
         shapes["router llama3-8b full width, spec and prefix cache"] = \
             spec_full["shapes"]
     free_device()
+    with phase("15 fidelity replay and calibration on the card (B1)"):
+        fid = fidelity_phase(checked, gen, stores / "fidelity")
+        runs["fidelity llama3-8b and zamba2-2.7b manifests"] = \
+            fid["launches"]
+        shapes["fidelity llama3-8b and zamba2-2.7b manifests"] = \
+            fid["shapes"]
+    free_device()
+    with phase("16 capture-prewarmed serving: phase 11's deployment and a "
+               "model-drafter fleet (B1, goma_combine; B2)"):
+        cap_full = capture_sched_full(checked, sched, stores / "capture")
+        runs["scheduler llama3-8b full width, capture prewarm"] = \
+            cap_full["launches"]
+        shapes["scheduler llama3-8b full width, capture prewarm"] = \
+            cap_full["shapes"]
+        cap_fleet = capture_fleet_smoke(checked, stores / "capture_fleet")
+        runs["router llama3-8b smoke, model drafter, capture prewarm"] = \
+            cap_fleet["launches"]
+        shapes["router llama3-8b smoke, model drafter, capture prewarm"] = \
+            cap_fleet["shapes"]
+    free_device()
 
     b1 = next(r for r in b1_rows if r["shape"] == [4, 14336, 4096])
     b2 = next(r for r in b2_rows if r["shape"] == [4, 128, 64])
@@ -2428,6 +2923,9 @@ def main() -> None:
              "scale_out": {"smoke": {k: spec_smoke[k] for k in (
                                "fleet_prewarm", "prefix_hits")},
                            "full_width": spec_full["serve"]},
+             "fidelity": fid["fidelity"],
+             "capture": {"full_width": cap_full["serve"],
+                         "smoke_fleet": cap_fleet["serve"]},
              "launches": runs,
              "shapes": shapes,
              "kernels": kernels,

@@ -36,7 +36,7 @@ import torch
 from ..core.hopper_mapping import (CTA_TILE, SMEM_BYTES, FusedTilePlan,
                                    fused_smem_bytes)
 from . import _build
-from .goma_gemm import DTYPE_CODES, check_cuda_operands, pad_k
+from .goma_gemm import DTYPE_CODES, check_cuda_operands, pad_k, traced
 
 
 def _gelu_tanh(g: torch.Tensor) -> torch.Tensor:
@@ -75,8 +75,11 @@ def goma_combine(g: torch.Tensor, u: torch.Tensor,
     if g.shape != u.shape or g.dtype != u.dtype:
         raise ValueError(f"gate {tuple(g.shape)} {g.dtype} and up "
                          f"{tuple(u.shape)} {u.dtype} differ")
-    if g.device.type == "cpu":
-        return goma_combine_plain(g, u, activation)
+    if g.device.type != "cuda":
+        if traced(g):
+            return torch.empty_like(g)
+        if g.device.type == "cpu":
+            return goma_combine_plain(g, u, activation)
     g, u = g.contiguous(), u.contiguous()
     check_cuda_operands("goma_combine", g, u)
     out = torch.empty_like(g)
@@ -128,9 +131,12 @@ def goma_fused_matmul(a: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     if not plan.fused or plan.bm <= 0:
         raise ValueError(f"unfused plan dispatched to the fused kernel: "
                          f"{plan}")
-    if a.device.type == "cpu":
-        return goma_fused_matmul_plain(a, wg, wu, wd, plan,
-                                       activation=activation)
+    if a.device.type != "cuda":
+        if traced(a):
+            return a.new_empty((pm, pn2))
+        if a.device.type == "cpu":
+            return goma_fused_matmul_plain(a, wg, wu, wd, plan,
+                                           activation=activation)
     check_cuda_operands("goma_fused_matmul", a, wg, wu, wd)
     bm, bk = plan.bm, plan.bk
     if bm % CTA_TILE or pff % CTA_TILE or pn2 % CTA_TILE or pm % bm or \

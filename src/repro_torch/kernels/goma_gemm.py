@@ -27,7 +27,9 @@ one CTA per plan block, one fmaf chain per element.
 launch in ``goma_matmul.launches``; for CPU tensors it runs
 ``goma_matmul_plain``, which walks the plan's k stages in order with
 fp32 accumulation, vectorised over m and n, and rounds where the kernel
-does.
+does.  On a trace's fake tensor (``traced``) it returns an empty output
+of the right shape, so a traced program sees the kernel as one opaque
+node (``capture.trace``).
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
 from ..core.hopper_mapping import CTA_TILE, TpuTilePlan
 from . import _build
@@ -44,6 +47,15 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SLICE_WIDTHS = (128, 64, 32)
 # the H100 SXM's streaming multiprocessors
 SM_COUNT = 132
+
+
+def traced(t: torch.Tensor) -> bool:
+    """True for a fake tensor of a trace (``capture.trace`` traces on
+    fake tensors of the meta device).  The wrappers then launch nothing
+    and return an empty output of the kernel's shape.  Only the CPU and
+    CUDA checks run before it, so a real CUDA tensor never takes that
+    path, and a plain meta tensor is refused as any other device is."""
+    return isinstance(t, FakeTensor)
 
 
 def check_cuda_operands(name: str, *ts: torch.Tensor) -> None:
@@ -139,8 +151,11 @@ def goma_matmul(a: torch.Tensor, b: torch.Tensor, plan: TpuTilePlan, *,
     if a.shape != (pm, pk) or b.shape != (pk, pn):
         raise ValueError(f"operands {tuple(a.shape)} @ {tuple(b.shape)} do "
                          f"not match the plan's padded {plan.padded}")
-    if a.device.type == "cpu":
-        return goma_matmul_plain(a, b, plan)
+    if a.device.type != "cuda":
+        if traced(a):
+            return a.new_empty((pm, pn))
+        if a.device.type == "cpu":
+            return goma_matmul_plain(a, b, plan)
     check_cuda_operands("goma_matmul", a, b)
     if bm % CTA_TILE or bn % CTA_TILE or pm % bm or pn % bn or pk % bk:
         raise ValueError(f"plan block {plan.block} does not tile "

@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .goma_gemm import DTYPE_CODES, check_cuda_operands
+from .goma_gemm import DTYPE_CODES, check_cuda_operands, traced
 
 # the head (P) and state (N) sizes the kernel is built for, each one of
 # these: zamba2-2.7b's 64 x 64 and its smoke config's 16 x 16
@@ -92,10 +92,14 @@ def ssd_scan(xh, dt, a_log, Bm, Cm, *, chunk: int = 64):
     WITHOUT the D x skip term, final_state: (B, H, P, N) fp32), from a
     zero initial state."""
     _check_shapes(xh, dt, a_log, Bm, Cm, chunk)
-    if xh.device.type == "cpu":
-        return ssd_scan_plain(xh, dt, a_log, Bm, Cm, chunk=chunk)
     B, S, H, P = xh.shape
     N = Bm.shape[-1]
+    if xh.device.type != "cuda":
+        if traced(xh):
+            return torch.empty_like(xh), xh.new_empty((B, H, P, N),
+                                                      dtype=torch.float32)
+        if xh.device.type == "cpu":
+            return ssd_scan_plain(xh, dt, a_log, Bm, Cm, chunk=chunk)
     a_log = a_log.to(torch.float32).contiguous()
     check_cuda_operands("ssd_scan", xh, dt, Bm, Cm)
     check_cuda_operands("ssd_scan", a_log)

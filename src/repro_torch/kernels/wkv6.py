@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .goma_gemm import DTYPE_CODES, check_cuda_operands
+from .goma_gemm import DTYPE_CODES, check_cuda_operands, traced
 
 # the head size the kernel is built for: RWKV-6's, the only one it has
 HEAD = 64
@@ -87,9 +87,13 @@ def wkv6_scan(r, k, v, logw, u, *, chunk: int = 64):
     Returns (y: (B, S, H, P) in r's dtype, final_state: (B, H, P, P)
     fp32), from a zero initial state."""
     _check_shapes(r, k, v, logw, u, chunk)
-    if r.device.type == "cpu":
-        return wkv6_scan_plain(r, k, v, logw, u, chunk=chunk)
     B, S, H, P = r.shape
+    if r.device.type != "cuda":
+        if traced(r):
+            return torch.empty_like(r), r.new_empty((B, H, P, P),
+                                                    dtype=torch.float32)
+        if r.device.type == "cpu":
+            return wkv6_scan_plain(r, k, v, logw, u, chunk=chunk)
     u = u.to(torch.float32).contiguous()
     check_cuda_operands("wkv6_scan", r, k, v, logw)
     check_cuda_operands("wkv6_scan", u)

@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --fused-mlp [--smoke] [--device cpu] [--continuous] \
-        [--plan-db DIR --prewarm-source enumerated]
+        [--plan-db DIR [--prewarm-source enumerated]]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
         --scan-kernel [--smoke] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
@@ -32,12 +32,13 @@ Weights are random, made on the device from a seeded torch.Generator.
 ``--plan-db DIR`` (or ``$GOMA_PLAN_DB``) plans every kernel tiling of the
 deployment through a GOMA plan store before the first request: static
 serving prewarms through ``Engine.prewarm_plans``, ``--continuous``
-hands the store to the scheduler's bucketed prewarm.  The port prewarms
-from the hand extraction tables only (``--prewarm-source enumerated``);
-the reference's default, program capture, is not ported yet (ROADMAP
-A10) and is refused.  A second run on the same store prints ``puts: 0``
-and makes no solver call.  ``--inject`` and ``--chaos-seed`` install a
-deterministic fault schedule (``faults.parse_faults``).
+hands the store to the scheduler's bucketed prewarm.  The shapes come
+from the model's own traced programs (``--prewarm-source capture``, the
+default, as in the reference) or from the hand extraction tables
+(``--prewarm-source enumerated``).  A second run on the same store
+prints ``puts: 0`` and makes no solver call.  ``--inject`` and
+``--chaos-seed`` install a deterministic fault schedule
+(``faults.parse_faults``).
 """
 from __future__ import annotations
 
@@ -78,9 +79,9 @@ def main(argv: list[str] | None = None) -> None:
                          "through the store (also: $GOMA_PLAN_DB)")
     ap.add_argument("--prewarm-source", default="capture",
                     choices=("capture", "enumerated"),
-                    help="plan prewarm shape source: 'enumerated' uses "
-                         "the hand extraction tables; 'capture' (traced "
-                         "programs) is not ported yet (ROADMAP A10)")
+                    help="plan prewarm shape source: 'capture' (default) "
+                         "reads the model's traced programs; 'enumerated' "
+                         "uses the hand extraction tables")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda)")
     ap.add_argument("--continuous", action="store_true",

@@ -80,7 +80,8 @@ class Model:
         """Random weights made on ``device`` from ``generator`` (which
         must live on that device), with the reference's scales: normal
         projections with std 1/sqrt(d_in), embeddings with std 0.02,
-        unit norm scales; RWKV mixes 0.5, bonus 0 and decay bias -6;
+        unit norm scales (zero biases for layernorm); RWKV mixes 0.5,
+        bonus 0 and decay bias -6;
         Mamba2 conv taps with std 1/sqrt(K), A_log 0, D 1, dt_bias 0.
         Projection weights, expert banks and shared experts are made in
         the compute dtype, the MoE router, the bonus, decay bias, A_log,
@@ -102,6 +103,9 @@ class Model:
                                 cdt)}
 
         def norm(shape):
+            if cfg.norm == "layernorm":
+                return {"scale": full(shape, 1.0, pdt),
+                        "bias": full(shape, 0.0, pdt)}
             return {"scale": full(shape, 1.0, pdt)}
 
         def attn_mlp(lead, moe=False):

@@ -18,13 +18,23 @@ wrote.
         --hw eyeriss-like --shapes 64x96x128,256x256x512 \
         --spatial-mode le --store /tmp/plans
 
+    # trace a program (a repro_torch.models Model, or the LlmSpec
+    # reference program) and plan what it executes
+    PYTHONPATH=src python -m repro_torch.plan capture --arch rwkv6-7b \
+        --smoke --phase prefill --seq 256 --hw eyeriss-like \
+        --store /tmp/plans
+
+    # replay a manifest's shapes through B1 on the card (--device cpu:
+    # the plain version) and fit the latency model to the recorded rows
+    PYTHONPATH=src python -m repro_torch.plan fidelity \
+        --manifest /tmp/llama1b.manifest.json --store /tmp/plans
+    PYTHONPATH=src python -m repro_torch.plan calibrate \
+        --store /tmp/plans --name llama-3.2-1b --spec h100-like --save
+
 Serving deployments prewarm their own H100 plans into a store through
 ``serving.Engine`` and ``launch/serve --plan-db``; ``--hw`` here keeps the
-reference's template choices.
-
-Not ported yet: ``capture``, ``trace`` and ``build --chains`` (program
-capture, ROADMAP A10), ``fidelity`` and ``calibrate`` (ROADMAP A9).  They
-raise NotImplementedError naming their item.
+reference's template choices.  ``fidelity`` plans each shape for the
+H100 (``obs.fidelity``), whatever accelerator the manifest was built for.
 """
 from __future__ import annotations
 
@@ -37,8 +47,9 @@ from ..core.pareto import select_frontier_point, verify_pareto
 from ..dist.mesh_solve import verify_sharded
 from ..core.hardware import TEMPLATES
 from ..core.workloads import (CENTER_MODELS, EDGE_MODELS,
-                              arch_decode_gemms, arch_gemms)
-from .batch import BatchPlanner
+                              arch_decode_gemms, arch_decode_program,
+                              arch_gemms, arch_program, scenario_program)
+from .batch import BatchPlanner, cached_solve_chain
 from .manifest import ModelMappingManifest
 from .store import PLAN_DB_ENV, PlanStore
 
@@ -62,22 +73,44 @@ def _open_store(args) -> PlanStore:
     return PlanStore(root)
 
 
+def _solve_scenario_chains(store, hw, chains) -> int:
+    """Chain-solve (type, GemmChain, weight) rows into <store>/fused/."""
+    n = 0
+    for _, chain, w in chains:
+        res = cached_solve_chain(chain, hw, store=store)
+        c = res.certificate
+        tag = f"fused(bm={c.bm})" if c.fused else "unfused"
+        print(f"[chain] w={w} {chain.describe()}: {tag} "
+              f"savings={100 * c.savings:.2f}% gap={c.gap:.3g}")
+        n += 1
+    return n
+
+
 def cmd_build(args) -> int:
-    if args.chains:
-        raise NotImplementedError(
-            "plan build --chains is not ported yet: ROADMAP A10 (its "
-            "chain rows come from the PlanProgram of program capture)")
     store = _open_store(args)
     hw = TEMPLATES[args.hw]
     planner = BatchPlanner(store, jobs=args.jobs,
                            warm_start=not args.no_warm_start)
     seqs = _ints(args.seqs)
     decode = _ints(args.decode_batches) if args.decode_batches else []
+    if args.chains and args.objective != "energy":
+        # mirror capture.plan.plan_program: the chain credit is priced
+        # in absolute energy, so chain solving under another objective
+        # would silently answer a different question
+        print(f"[chains] skipped: chain solving requires "
+              f"--objective energy (got {args.objective})")
+        args.chains = False
+    chains = []
     if args.model:
         spec = MODELS[args.model]
         manifest = planner.plan_model(
             spec, hw, prefill_seqs=seqs, decode_batches=decode,
             cache_len=args.cache_len, objective=args.objective)
+        if args.chains:
+            # the PlanProgram shim owns the chain-assembly conventions
+            chains = scenario_program(
+                spec, prefill_seqs=seqs, decode_batches=decode,
+                cache_len=args.cache_len).chain_rows()
     else:
         gemms = []
         for seq in seqs:
@@ -92,12 +125,24 @@ def cmd_build(args) -> int:
             prefill_seqs=tuple(seqs), decode_batches=tuple(decode),
             cache_len=args.cache_len, entries=entries,
             solver_version=SOLVER_VERSION)
+        if args.chains:
+            # the PlanProgram shims own the chain-assembly conventions
+            for seq in seqs:
+                chains.extend(arch_program(args.arch,
+                                           seq=seq).chain_rows())
+            for b in decode:
+                chains.extend(arch_decode_program(
+                    args.arch, batch=b,
+                    cache_len=args.cache_len).chain_rows())
     rep = planner.last_report
     print(manifest.summary())
     print(f"[batch] gemms={rep.total_gemms} unique={rep.unique_gemms} "
           f"hits={rep.hits} solved={rep.solved} "
           f"warm_started={rep.warm_started} "
           f"wall={rep.wall_time_s:.2f}s solve_cpu={rep.solve_time_s:.2f}s")
+    if chains:
+        n = _solve_scenario_chains(store, hw, chains)
+        print(f"[chains] {n} chain plans in fused section")
     print(f"[store] {store.stats()}")
     if args.manifest:
         path = manifest.save(args.manifest)
@@ -107,8 +152,53 @@ def cmd_build(args) -> int:
 
 def cmd_capture(args) -> int:
     """Trace a program, lower it through the plan pass, report."""
-    raise NotImplementedError(
-        "plan capture is not ported yet: ROADMAP A10 (program capture)")
+    from ..capture import (capture_model_decode, capture_model_prefill,
+                           capture_spec_decode, capture_spec_prefill,
+                           plan_program)
+    store = _open_store(args) if (args.store or args.use_env_store) \
+        else None
+    hw = TEMPLATES[args.hw]
+    programs = []
+    if args.model:
+        spec = MODELS[args.model]
+        if args.phase in ("prefill", "both"):
+            programs.append(capture_spec_prefill(spec, args.seq))
+        if args.phase in ("decode", "both"):
+            programs.append(capture_spec_decode(spec, args.batch,
+                                                args.cache_len))
+    else:
+        from ..configs import get_config
+        from ..models.model import build_model
+        model = build_model(get_config(args.arch, smoke=args.smoke))
+        if args.phase in ("prefill", "both"):
+            programs.append(capture_model_prefill(
+                model, args.batch, args.seq, cache_len=args.cache_len))
+        if args.phase in ("decode", "both"):
+            programs.append(capture_model_decode(model, args.batch,
+                                                 args.cache_len))
+    program = programs[0]
+    for extra in programs[1:]:
+        program = program.merged(extra)
+    print(program.summary())
+    if program.chains and args.objective != "energy":
+        print(f"[chains] skipped: chain solving requires "
+              f"--objective energy (got {args.objective})")
+    if args.verbose:
+        for pg in program.gemms:
+            print(f"  gemm {pg.dims} w={pg.weight} <- {pg.label}")
+        for pc in program.chains:
+            print(f"  chain {pc.key} w={pc.weight}")
+    plan = plan_program(program, hw, store=store, jobs=args.jobs,
+                        objective=args.objective)
+    print(plan.manifest.summary())
+    for row in plan.chain_rows:
+        print(f"  chain w={row.weight} " + row.certificate.summary())
+    if args.manifest:
+        path = plan.manifest.save(args.manifest)
+        print(f"[manifest] written to {path}")
+    if store is not None:
+        print(f"[store] {store.stats()}")
+    return 0 if plan.feasible else 1
 
 
 def cmd_inspect(args) -> int:
@@ -259,22 +349,81 @@ def cmd_stats(args) -> int:
         print(f"[store] {json.dumps(store.stats())}")
         fid_dir = store.root / "fidelity"
         if fid_dir.is_dir():
-            # reading the rows waits for the fidelity port (ROADMAP A9)
+            from ..obs.fidelity import load_rows
             for path in sorted(fid_dir.glob("*.jsonl")):
-                print(f"[fidelity] {path.name}: not read (ROADMAP A9)")
+                summary, rows = load_rows(path)
+                print(f"[fidelity] {path.name}: rows={len(rows)} "
+                      f"passes={summary.get('passes')} "
+                      f"families={summary.get('families')}")
     return 0
 
 
 def cmd_trace(args) -> int:
     """Run one traced capture->plan pass and summarize/export spans."""
-    raise NotImplementedError(
-        "plan trace is not ported yet: ROADMAP A10 (program capture)")
+    from ..capture import capture_spec_prefill, plan_program
+    from ..obs.tracing import Tracer, set_tracer
+
+    store = _open_store(args) if args.store else None
+    hw = TEMPLATES[args.hw]
+    spec = MODELS[args.model]
+    tracer = Tracer()
+    prev = set_tracer(tracer)
+    try:
+        program = capture_spec_prefill(spec, args.seq)
+        plan = plan_program(program, hw, store=store, jobs=1)
+    finally:
+        set_tracer(prev)
+    print(plan.manifest.summary())
+    by_name: dict[str, list[float]] = {}
+    for sp in tracer.spans:
+        by_name.setdefault(sp.name, []).append(sp.duration)
+    print(f"[trace] {len(tracer.spans)} spans")
+    for name, durs in sorted(by_name.items(),
+                             key=lambda kv: -sum(kv[1])):
+        print(f"  {name:28s} n={len(durs):4d} "
+              f"total={sum(durs) * 1e3:9.2f}ms "
+              f"max={max(durs) * 1e3:8.2f}ms")
+    if args.out:
+        tracer.to_jsonl(args.out)
+        print(f"[trace] spans written to {args.out}")
+    return 0
 
 
 def cmd_fidelity(args) -> int:
     """Replay a manifest through the GEMM kernel; gate on rank corr."""
-    raise NotImplementedError(
-        "plan fidelity is not ported yet: ROADMAP A9 (fidelity replay)")
+    from ..core import hopper_mapping
+    from ..obs.fidelity import record_rows, replay_manifest
+
+    if args.device == "cuda":
+        import torch
+        if not torch.cuda.is_available():
+            sys.exit("error: no CUDA device; pass --device cpu to replay "
+                     "through the kernel's plain version")
+    manifest = ModelMappingManifest.load(args.manifest)
+    store = _open_store(args) if args.store else None
+    if store is not None:
+        hopper_mapping.set_plan_store(store)
+
+    def progress(i, n, row):
+        print(f"  [{i}/{n}] {row.gemm_type:16s} {str(row.dims):>22s} "
+              f"pred={row.predicted_energy:.3e}pJ "
+              f"t={row.measured_time_s * 1e3:.3f}ms")
+
+    rep = replay_manifest(
+        manifest, repeats=args.repeats, warmup=args.warmup,
+        device=args.device, max_entries=args.max_entries, gate=args.gate,
+        estimator=args.estimator,
+        progress=progress if args.verbose else None)
+    print(f"[fidelity] {rep.summary()}")
+    if store is not None:
+        path = record_rows(rep, store.root, args.name or manifest.model)
+        print(f"[fidelity] rows recorded at {path}")
+    if args.out:
+        import json
+        with open(args.out, "w") as fh:
+            json.dump(rep.to_json(), fh, indent=1, sort_keys=True)
+        print(f"[fidelity] report written to {args.out}")
+    return 0 if rep.passes() else 1
 
 
 def _shapes(s: str) -> list[tuple[int, int, int]]:
@@ -356,9 +505,31 @@ def cmd_pareto(args) -> int:
 
 
 def cmd_calibrate(args) -> int:
-    """Fit the latency model's bandwidth table against fidelity rows."""
-    raise NotImplementedError(
-        "plan calibrate is not ported yet: ROADMAP A9 (calibration)")
+    """Fit the latency model's bandwidth table against fidelity rows;
+    exit 1 when the held-out regression gate fails."""
+    import os
+
+    from ..obs.calibrate import fit_jsonl, save_calibration
+
+    rows_path = args.rows
+    if rows_path is None:
+        root = args.store or os.environ.get(PLAN_DB_ENV, "").strip()
+        if not root or not args.name:
+            sys.exit("error: pass --rows, or --store/--name to locate "
+                     "<store>/fidelity/<name>.jsonl")
+        rows_path = f"{root}/fidelity/{args.name}.jsonl"
+    rep = fit_jsonl(rows_path, holdout_every=args.holdout_every)
+    print(f"[calibrate] {rep.summary()}")
+    print(f"[calibrate] held-out |rel err|: calibrated "
+          f"{rep.holdout_err:.4f} vs compute-only "
+          f"{rep.baseline_holdout_err:.4f} "
+          f"({100 * rep.improvement:+.1f}% improvement)")
+    if args.save:
+        store = _open_store(args)
+        path = save_calibration(store.root, args.calibration_name,
+                                args.spec, rep)
+        print(f"[calibrate] saved under {path} (spec={args.spec})")
+    return 0 if rep.passes() else 1
 
 
 def main(argv=None) -> int:
@@ -385,21 +556,19 @@ def main(argv=None) -> int:
     b.add_argument("--no-warm-start", action="store_true")
     b.add_argument("--chains", action="store_true",
                    help="also chain-solve the scenario's fused-MLP "
-                        "chains into <store>/fused/ (not ported yet: "
-                        "ROADMAP A10)")
+                        "chains into <store>/fused/")
     b.add_argument("--manifest", default=None,
                    help="write the ModelMappingManifest JSON here")
     _add_store_arg(b)
     b.set_defaults(fn=cmd_build)
 
     c = sub.add_parser(
-        "capture", help="capture a program and plan it (not ported "
-        "yet: ROADMAP A10)")
+        "capture", help="capture a traced program and plan it")
     grp = c.add_mutually_exclusive_group(required=True)
     grp.add_argument("--model", choices=sorted(MODELS),
                      help="paper LlmSpec (captures the reference program)")
     grp.add_argument("--arch", help="repo architecture id (captures the "
-                                    "actual repro.models program)")
+                                    "actual repro_torch.models program)")
     c.add_argument("--phase", default="both",
                    choices=("prefill", "decode", "both"))
     c.add_argument("--seq", type=int, default=1024,
@@ -440,8 +609,7 @@ def main(argv=None) -> int:
     s.set_defaults(fn=cmd_stats)
 
     t = sub.add_parser("trace", help="run one traced capture->plan pass "
-                                     "and summarize / export its spans "
-                                     "(not ported yet: ROADMAP A10)")
+                                     "and summarize / export its spans")
     t.add_argument("--model", required=True, choices=sorted(MODELS),
                    help="paper LlmSpec model (reference prefill program)")
     t.add_argument("--seq", type=int, default=256)
@@ -453,8 +621,7 @@ def main(argv=None) -> int:
     f = sub.add_parser("fidelity", help="replay a manifest's plans "
                                         "through the GEMM kernel and gate "
                                         "on predicted-vs-measured rank "
-                                        "correlation (not ported yet: "
-                                        "ROADMAP A9)")
+                                        "correlation")
     f.add_argument("--manifest", required=True,
                    help="ModelMappingManifest JSON path")
     f.add_argument("--repeats", type=int, default=5)
@@ -463,8 +630,9 @@ def main(argv=None) -> int:
                    choices=("median", "min"),
                    help="per-plan time estimator (min: stable for "
                         "tens-of-µs kernels under dispatch noise)")
-    f.add_argument("--interpret", action="store_true",
-                   help="force the Pallas interpreter path")
+    f.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="replay on the card (B1; default) or through the "
+                        "kernel's plain version on the CPU")
     f.add_argument("--max-entries", type=int, default=None)
     f.add_argument("--gate", type=float, default=0.9)
     f.add_argument("--name", default=None,
@@ -502,8 +670,7 @@ def main(argv=None) -> int:
                          help="fit the latency model's bandwidth table "
                               "against recorded fidelity rows; exit 1 "
                               "when held-out error does not beat the "
-                              "compute-only baseline (not ported "
-                              "yet: ROADMAP A9)")
+                              "compute-only baseline")
     cal.add_argument("--rows", default=None,
                      help="fidelity JSONL path (default: "
                           "<store>/fidelity/<name>.jsonl)")
@@ -511,7 +678,7 @@ def main(argv=None) -> int:
                      help="fidelity record name under the store")
     cal.add_argument("--holdout-every", type=int, default=3,
                      help="hold out every Nth row for the gate")
-    cal.add_argument("--spec", default="tpuv5e-like",
+    cal.add_argument("--spec", default="h100-like",
                      help="spec name the calibration applies to")
     cal.add_argument("--save", action="store_true",
                      help="persist under <store>/calibration/")

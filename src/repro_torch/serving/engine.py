@@ -17,8 +17,7 @@ through the store, for the H100 (``core.hopper_mapping``); serving then
 resolves every kernel plan with zero solver calls.
 
 ``verify_step`` is speculative decoding's batched verify (the router's
-``spec`` module and the scheduler's spec decode).  Not ported yet:
-``prewarm_plans(source="capture")`` (program capture, ROADMAP A10).
+``spec`` module and the scheduler's spec decode).
 """
 from __future__ import annotations
 
@@ -143,6 +142,18 @@ class Engine:
         return (self.plan_store if self.plan_store is not None
                 else resolve_default_store())
 
+    def _install_store(self) -> None:
+        """Install the engine's store as the process plan store, as the
+        prewarm helpers do.  A capture installs it before it traces: the
+        trace resolves the plans of the kernels it passes (a fused chain,
+        an unfused chain's B1 tilings), and those must land in the
+        store, not only in the process cache that installing it later
+        would flush."""
+        store = self._store()
+        if store is not None:
+            from ..core import hopper_mapping
+            hopper_mapping.set_plan_store(store)
+
     def prewarm_plans(self, arch_id: str | None, batch: int,
                       prompt_len: int, *,
                       dtype_bytes: int | None = None,
@@ -152,28 +163,31 @@ class Engine:
         plan database when one is installed.  After this, the serving loop
         never invokes the GOMA solver.  Returns #shapes planned.
 
-        ``source="enumerated"`` reads the shape set off the hand-enumerated
-        ``arch_id`` extraction tables.  ``source="capture"``, the
-        reference's default, reads it off the engine's own traced
-        programs; program capture is not ported yet (ROADMAP A10), so it
-        raises.
+        ``source="capture"`` (default) reads the shape set off the
+        engine's *own* traced prefill/decode programs (capture.plan) — the
+        plans match what this model actually dispatches, smoke variants
+        included, and ``arch_id`` is only documentation.
+        ``source="enumerated"`` falls back to the hand-enumerated
+        ``arch_id`` extraction tables.
 
         dtype_bytes defaults to the model's compute dtype — plan identity
         includes the dtype-rescaled shared-memory capacity, so prewarming
         bf16 plans for an fp32 engine would all miss at dispatch time."""
         if source == "capture":
-            raise NotImplementedError(
-                "prewarm_plans(source='capture') is not ported yet: "
-                "ROADMAP A10 (program capture); pass source='enumerated' "
-                "and an arch_id")
-        if arch_id is None:
-            raise ValueError(
-                "prewarm_plans(source='enumerated') needs an arch_id "
-                "to look up the extraction tables")
-        from ..planner.batch import serving_plan_shapes
-        shapes = serving_plan_shapes(arch_id, batch=batch,
-                                     prompt_len=prompt_len,
-                                     cache_len=self.cfg.cache_len)
+            from ..capture.plan import serving_capture_shapes
+            self._install_store()
+            shapes = serving_capture_shapes(self.model, batch, prompt_len,
+                                            self.cfg.cache_len)
+        else:
+            if arch_id is None:
+                raise ValueError(
+                    "prewarm_plans(source='enumerated') needs an arch_id "
+                    "to look up the extraction tables; only the capture "
+                    "source reads everything off the model itself")
+            from ..planner.batch import serving_plan_shapes
+            shapes = serving_plan_shapes(arch_id, batch=batch,
+                                         prompt_len=prompt_len,
+                                         cache_len=self.cfg.cache_len)
         return self.prewarm_shapes(shapes, dtype_bytes=dtype_bytes)
 
     def prewarm_shapes(self, shapes, *,

@@ -46,28 +46,29 @@ Where the port differs from the reference:
   ``torch.Generator``, seeded from ``(rng_seed, req_id, token_idx)``, so
   a stream does not depend on what else is scheduled; it follows the
   reference's distribution but not its ``jax.random`` bits.
-- Planning: with a plan store and an ``arch_id``, construction prewarms
-  every bucketed GEMM tiling and fused chain through the store from the
-  hand extraction tables (``prewarm_source="enumerated"``), and each
+- Planning: with a plan store (or an ``arch_id``), construction prewarms
+  every bucketed GEMM tiling and fused chain through the store, and each
   phase resolves its plans once at first dispatch, so steady-state
-  traffic makes zero solver calls.  The reference's default source,
-  "capture", reads the shapes off traced programs; program capture is not
-  ported yet (ROADMAP A10), so a deployment that would prewarm through it
-  is refused.  With a drafter, the reference takes the verify windows'
-  GEMM groups from the capture (``captured_spec_plan_shape_groups``); the
-  port takes them from the extraction tables
-  (``planner.batch.bucketed_spec_plan_shape_groups``, the reference's own
-  enumerated counterpart), and with the fused MLP adds each window's
-  chain group (the chains of a ``slots * spec_width``-row decode), so the
-  verify steps resolve every plan from the prewarm.  A draft model's own
-  programs are not in the tables (they are keyed by arch id, and the
-  scheduler knows only the target's): they plan at first dispatch.  A
+  traffic makes zero solver calls.  With the default source, "capture",
+  the GEMM groups are read off the engine model's own traced programs
+  (``capture.plan.captured_serving_plan_shape_groups``), as in the
+  reference; the capture installs the engine's store before it traces,
+  so the plans the trace resolves as it passes the kernel wrappers land
+  in the store.  ``prewarm_source="enumerated"`` reads them off the hand
+  extraction tables of ``arch_id``.  With a drafter, the capture source
+  takes the verify windows' groups, and a draft model's own
+  ``draft.decode`` / ``draft.chunk{W}`` groups, from the traced programs
+  (``captured_spec_plan_shape_groups``), as the reference does; the
+  enumerated source takes the verify groups from the extraction tables
+  (``planner.batch.bucketed_spec_plan_shape_groups``), where a draft
+  model's programs are not.  With the fused MLP, either source adds each
+  window's chain group (the chains of a ``slots * spec_width``-row
+  decode), so the verify steps resolve every plan from the prewarm.  A
   replica built with the router's ``plan_groups`` / ``chain_groups``
   skips the prewarm and resolves from the donor's.  ``mesh_chips > 1``
   prewarms the store's sharded section; serving itself runs on one device
   (a mesh is ROADMAP A13).  Every ``SchedConfig`` field is kept with its
-  default; setting one whose machinery is not ported raises
-  NotImplementedError (``UNPORTED``).
+  default, and every setting is taken (``UNPORTED`` is empty).
 """
 from __future__ import annotations
 
@@ -126,8 +127,7 @@ def ensure_supported_family(model_cfg) -> None:
 
 @dataclasses.dataclass
 class SchedConfig:
-    """The reference's fields and defaults; see UNPORTED for the ones the
-    port refuses to take yet."""
+    """The reference's fields and defaults."""
 
     slots: int = 8
     chunk_widths: tuple[int, ...] = (8, 32, 128)
@@ -138,11 +138,11 @@ class SchedConfig:
     rng_seed: int = 0                   # per-request sampling streams
     resolve_plans: bool = True          # resolve tile plans per phase when
     #                                     a plan store is installed
-    prewarm_source: str = "capture"     # "enumerated": the bucketed GEMM
-    #                                     groups from the hand extraction
-    #                                     tables (arch_id); "capture" (the
-    #                                     reference's traced programs) is
-    #                                     refused: UNPORTED
+    prewarm_source: str = "capture"     # "capture": the bucketed GEMM
+    #                                     groups read off the engine
+    #                                     model's traced programs;
+    #                                     "enumerated": off the hand
+    #                                     extraction tables (arch_id)
     mesh_chips: int = 1                 # > 1: prewarm also fills the
     #                                     store's sharded section with
     #                                     joint (partition, tiling) plans
@@ -180,15 +180,8 @@ class SchedConfig:
 
 # what a caller may set whose machinery is not ported yet: its name, a
 # test of (config, constructor arguments and the engine's plan store),
-# and the ROADMAP item that ports it
-UNPORTED = (
-    ("SchedConfig.prewarm_source='capture'",
-     lambda cfg, kw: cfg.prewarm_source == "capture"
-     and kw["plan_groups"] is None
-     and (kw["arch_id"] is not None or kw["plan_store"] is not None),
-     "A10 (program capture); pass prewarm_source='enumerated' and an "
-     "arch_id"),
-)
+# and the ROADMAP item that ports it.  Empty: every setting is ported.
+UNPORTED = ()
 
 
 @dataclasses.dataclass
@@ -288,19 +281,23 @@ class ContinuousScheduler:
         # planning: the donor replica already pushed every group through
         # the store / in-process plan cache, so this replica only needs
         # the group dicts for its per-phase ``_resolve_plans`` calls
+        # capture-source prewarm reads everything off the engine's own
+        # model, so a plan-store deployment prewarms even without an
+        # arch_id; enumerated prewarm needs the arch extraction tables
         if plan_groups is not None:
             self._plan_groups = dict(plan_groups)
             self._chain_groups = dict(chain_groups or {})
-        elif arch_id is not None:
+        elif arch_id is not None or (cfg.prewarm_source == "capture"
+                                     and engine.plan_store is not None):
             self.prewarmed_plans = self._prewarm(arch_id)
 
     # ------------------------------------------------------------ plan DB
-    def _prewarm(self, arch_id: str) -> int:
-        """Best-effort bucketed prewarm from the extraction tables: any
-        one group failing to plan must not take down scheduler
-        construction — the serving loop still works (those shapes just
-        solve cold at first dispatch), so each failure is logged, counted
-        (``sched.prewarm_failures``) and skipped."""
+    def _prewarm(self, arch_id: str | None) -> int:
+        """Best-effort bucketed prewarm: any one group failing to plan
+        must not take down scheduler construction — the serving loop
+        still works (those shapes just solve cold at first dispatch), so
+        each failure is logged, counted (``sched.prewarm_failures``) and
+        skipped."""
         from ...planner.batch import (bucketed_serving_fused_chain_groups,
                                       bucketed_serving_plan_shape_groups,
                                       bucketed_spec_plan_shape_groups)
@@ -346,26 +343,52 @@ class ContinuousScheduler:
                     _LOG.warning("chain prewarm failed for group %r "
                                  "(%s: %s); continuing", group,
                                  type(e).__name__, e)
+        capture = self.cfg.prewarm_source == "capture"
         try:
-            self._plan_groups = bucketed_serving_plan_shape_groups(
-                arch_id, slots=self.cfg.slots,
-                chunk_widths=self.buckets.chunk_widths,
-                cache_len=self.engine.cfg.cache_len)
+            if capture:
+                # per-bucket GEMM groups read off the engine model's own
+                # traced decode-step programs (chunked-prefill
+                # continuations at each width + the slot-batched decode):
+                # prewarmed plans match actual dispatch by construction
+                from ...capture.plan import \
+                    captured_serving_plan_shape_groups
+                self.engine._install_store()
+                self._plan_groups = captured_serving_plan_shape_groups(
+                    self.engine.model, slots=self.cfg.slots,
+                    chunk_widths=self.buckets.chunk_widths,
+                    cache_len=self.engine.cfg.cache_len)
+            else:
+                self._plan_groups = bucketed_serving_plan_shape_groups(
+                    arch_id, slots=self.cfg.slots,
+                    chunk_widths=self.buckets.chunk_widths,
+                    cache_len=self.engine.cfg.cache_len)
         except Exception as e:
             self._plan_groups = {}
             _REG.inc("sched.prewarm_failures")
             _LOG.warning("plan-group derivation failed (%s: %s); GEMMs "
                          "will solve at dispatch", type(e).__name__, e)
         if spec:
-            # speculative decoding dispatches the batched verify program:
-            # its GEMM group from the extraction tables (the reference
-            # reads it off the captured program), same bounded-group
-            # treatment and failure policy as the chunk widths
+            # speculative decoding dispatches the batched verify program
+            # (and, with a model drafter, the draft model's own decode
+            # programs) — same bounded-group treatment and failure policy
+            # as the chunk widths
             try:
-                self._plan_groups.update(bucketed_spec_plan_shape_groups(
-                    arch_id, batch=self.cfg.slots,
-                    spec_widths=(self.cfg.spec_width,),
-                    cache_len=self.engine.cfg.cache_len))
+                if capture:
+                    from ...capture.plan import \
+                        captured_spec_plan_shape_groups
+                    self._plan_groups.update(
+                        captured_spec_plan_shape_groups(
+                            self.engine.model, batch=self.cfg.slots,
+                            cache_len=self.engine.cfg.cache_len,
+                            spec_widths=(self.cfg.spec_width,),
+                            draft_model=getattr(self.drafter, "model",
+                                                None)))
+                else:
+                    self._plan_groups.update(
+                        bucketed_spec_plan_shape_groups(
+                            arch_id, batch=self.cfg.slots,
+                            spec_widths=(self.cfg.spec_width,),
+                            cache_len=self.engine.cfg.cache_len))
             except Exception as e:
                 _REG.inc("sched.prewarm_failures")
                 _LOG.warning("spec plan-group derivation failed (%s: %s)"

@@ -30,7 +30,9 @@ def test_modules_found():
               "models.ssm", "serving.sched.scheduler", "planner.store",
               "planner.batch", "planner.cli", "plan", "dist.mesh_solve",
               "models.moe", "serving.router", "serving.router.router",
-              "serving.router.prefix", "serving.router.spec"):
+              "serving.router.prefix", "serving.router.spec", "capture",
+              "capture.trace", "capture.program", "capture.plan",
+              "capture.reference", "obs.fidelity", "obs.calibrate"):
         assert f"repro_torch.{m}" in MODULES
     assert len(MODULES) >= 30
 
@@ -58,7 +60,10 @@ def test_no_source_imports_jax_or_the_reference():
             scanned.add(p.relative_to(PKG).as_posix())
     assert {"models/moe.py", "serving/router/__init__.py",
             "serving/router/router.py", "serving/router/prefix.py",
-            "serving/router/spec.py"} <= scanned
+            "serving/router/spec.py", "capture/__init__.py",
+            "capture/trace.py", "capture/program.py", "capture/plan.py",
+            "capture/reference.py", "obs/fidelity.py",
+            "obs/calibrate.py"} <= scanned
 
 
 def test_serve_without_a_card_exits_nonzero():
@@ -167,7 +172,8 @@ COPIED = ["faults.py", "configs/__init__.py", "configs/base.py",
           "core/dist_mapping.py", "core/workloads.py",
           "dist/__init__.py", "dist/mesh_solve.py",
           "planner/manifest.py", "planner/store.py",
-          "obs/registry.py", "obs/tracing.py",
+          "obs/registry.py", "obs/tracing.py", "obs/calibrate.py",
+          "capture/program.py",
           "serving/router/__init__.py", "serving/router/router.py",
           *(f"serving/sched/{m}.py" for m in ("__init__", "requests",
                                               "buckets", "slots", "metrics",

@@ -4,7 +4,8 @@ weights (the reference's init_params moved over with params_from_jax),
 slot-indexed decode logits within 1e-4, token streams equal to the JAX
 scheduler's and to the port's static oracle, and the scheduler's own
 contracts (zero steady-state solves, fault isolation, sampling streams,
-refusals).  The plan store's scheduler tests are in test_torch_store.py."""
+the capture prewarm source, refusals).  The plan store's scheduler tests
+are in test_torch_store.py."""
 import collections
 import dataclasses
 
@@ -393,17 +394,41 @@ def test_capacity_validation(pair):
     assert [r.req_id for r in sched.run()] == [2]
 
 
-UNPORTED_CASES = {
-    "SchedConfig.prewarm_source='capture'": ({}, {"arch_id": "llama3-8b"}),
-}
-
-
-@pytest.mark.parametrize("what,item", [(w, i) for w, _, i in UNPORTED])
-def test_unported_settings_raise(pair, what, item):
-    cfg_kw, kw = UNPORTED_CASES[what]
-    with pytest.raises(NotImplementedError, match=item[:3]):
-        ContinuousScheduler(_engine(pair), SchedConfig(**SCHED, **cfg_kw),
-                            **kw)
+def test_capture_prewarm_source_is_taken(pair, tmp_path):
+    """The reference's default prewarm source, program capture, is taken:
+    with a plan store and no arch_id the scheduler reads its GEMM groups
+    off the engine model's own traced programs (one per chunk width and
+    the slot-batched decode, at the smoke config's widths), puts them in
+    the store, and serves the trace with the streams of the JAX
+    scheduler and no solver call after the prewarm."""
+    from repro_torch.capture import captured_serving_plan_shape_groups
+    from repro_torch.planner import PlanStore
+    jmodel, jparams, tmodel, _ = pair
+    reqs = _trace(tmodel.cfg.vocab)
+    store = PlanStore(tmp_path)
+    engine = _engine(pair)
+    engine.plan_store = store
+    clock = TraceClock()
+    try:
+        sched = ContinuousScheduler(engine, SchedConfig(**SCHED),
+                                    clock=clock.now)
+        want_groups = captured_serving_plan_shape_groups(
+            tmodel, slots=SCHED["slots"], chunk_widths=SCHED["chunk_widths"],
+            cache_len=CACHE)
+        assert sched._plan_groups == want_groups
+        assert sched.prewarmed_plans == len(
+            {s for g in want_groups.values() for s in g}) > 0
+        assert len(store) > 0     # shapes padding alike share a key
+        reset_solver_stats()
+        got = _streams(replay(sched, reqs, clock))
+        assert solver_stats()["calls"] == 0
+    finally:
+        hopper_mapping.set_plan_store(None)
+    jclock = JTraceClock()
+    jsched = JScheduler(JEngine(jmodel, jparams, JServeConfig(
+        max_new_tokens=12, cache_len=CACHE)), JSchedConfig(**SCHED),
+        clock=jclock.now)
+    assert got == _streams(jreplay(jsched, reqs, jclock))
 
 
 def test_lifted_settings_are_taken(pair):
@@ -411,7 +436,7 @@ def test_lifted_settings_are_taken(pair):
     was ported are taken now: a window width without a drafter (decode
     stays width 1), a prefix cache, a drafter, and the router's shared
     plan groups, which a replica takes as they are, without a prewarm;
-    only the capture prewarm source stays refused."""
+    no setting is refused any more."""
     from repro_torch.serving.router import NgramDrafter, PrefixCache
     engine = _engine(pair)
     for cfg_kw, kw in (({"spec_width": 4}, {}),
@@ -423,5 +448,4 @@ def test_lifted_settings_are_taken(pair):
                                     **kw)
         assert sched.prewarmed_plans == 0
     assert sched._plan_groups == {"decode": [(3, 64, 64)]}
-    assert [w for w, _, _ in UNPORTED] == [
-        "SchedConfig.prewarm_source='capture'"]
+    assert UNPORTED == ()

@@ -6,8 +6,8 @@ and the other way round; Hopper plans sit beside the TPU plans under keys
 of their own and equal the in-process plans.  The scheduler's store tests
 of the reference (tests/test_serving_sched.py) are twinned with the
 enumerated prewarm source, with streams equal to the JAX scheduler's under
-the same settings, fused MLP on and off; then the settings this slice
-lifted, and the refusals it keeps."""
+the same settings, fused MLP on and off; then the capture prewarm source
+and the plan commands that capture and fidelity brought."""
 import dataclasses
 import pathlib
 import subprocess
@@ -495,28 +495,113 @@ def test_resolve_plans_off_serves_with_no_prewarm(pair, tmp_path):
     assert got == want
 
 
-# ------------------------------------------------------------- refusals
+# ------------------------------------------------- the capture source
 
-def test_capture_prewarm_with_a_store_is_refused(pair, tmp_path):
+def test_capture_prewarm_with_a_store(pair, tmp_path):
+    """The capture prewarm source with a store, as the reference runs it:
+    the scheduler (no arch_id) and ``Engine.prewarm_plans`` read their
+    shapes off the model's traced programs and fill the store; a second
+    scheduler on the store reopened, with the process's plan caches
+    flushed, puts nothing and serves with no solver call; streams equal
+    the JAX scheduler's with the capture source."""
+    from repro_torch.capture import serving_capture_shapes
     _, _, tmodel, tparams = pair
+    reqs = _requests(tmodel.cfg.vocab, 3, 4, 10, 5)
+    store = PlanStore(tmp_path / "db")
     engine = Engine(tmodel, tparams, ServeConfig(cache_len=CACHE),
-                    plan_store=PlanStore(tmp_path))
-    with pytest.raises(NotImplementedError, match="A10"):
-        ContinuousScheduler(engine, SchedConfig(**SCHED))
-    with pytest.raises(NotImplementedError, match="A10"):
-        engine.prewarm_plans(ARCH, 1, 8)
-    assert len(PlanStore(tmp_path)) == 0
+                    plan_store=store)
+    sched = ContinuousScheduler(engine, SchedConfig(**SCHED))
+    assert sched.prewarmed_plans > 0 and len(store) > 0
+    n = engine.prewarm_plans(None, 1, 8)
+    assert n == len(serving_capture_shapes(tmodel, 1, 8, CACHE)) > 0
+    hm.set_plan_store(None)
+    reopened = PlanStore(tmp_path / "db")
+    got_sched, got = _port(pair, reqs, store=reopened)
+    assert reopened.puts == 0 and reopened.misses == 0
+    assert solver_stats()["calls"] == 0
+    assert got_sched._plan_groups == sched._plan_groups
+    assert got == _jax(pair, reqs, tmp_path, prewarm_source="capture")
 
 
-@pytest.mark.parametrize("args,item", [
-    (["capture", "--model", "qwen3-0.6b"], "A10"),
-    (["trace", "--model", "qwen3-0.6b"], "A10"),
-    (["build", "--model", "qwen3-0.6b", "--chains"], "A10"),
-    (["fidelity", "--manifest", "m.json"], "A9"),
-    (["calibrate", "--rows", "r.jsonl"], "A9")])
-def test_unported_plan_commands_raise(tmp_path, args, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(args + ["--store", str(tmp_path)])
+def _fidelity_manifest(path):
+    """test_obs.py's TestFidelity manifest: three shapes, an infeasible
+    entry and a duplicate of the first shape under another family."""
+    from repro_torch.planner.manifest import (ManifestEntry,
+                                              ModelMappingManifest)
+    shapes = [(128, 256, 256), (256, 512, 512), (512, 1024, 1024)]
+    entries = [ManifestEntry(
+        gemm_type="mlp", dims=d, weight=1, digest=f"e{i}", objective=0.0,
+        feasible=True, solve_time_s=0.0, cached=False)
+        for i, d in enumerate(shapes)]
+    entries.append(ManifestEntry(
+        gemm_type="attn", dims=shapes[0], weight=3, digest="dup",
+        objective=0.0, feasible=True, solve_time_s=0.0, cached=False))
+    ModelMappingManifest(
+        model="t", hw_name="h100-like", objective="energy",
+        prefill_seqs=(), decode_batches=(), cache_len=0,
+        entries=entries).save(path)
+    return path
+
+
+def _calibration_rows(root):
+    """test_pareto.py's synthetic calibration rows, recorded."""
+    from repro_torch.obs.fidelity import (FidelityRow, _finalize_report,
+                                          record_rows)
+    rows = []
+    for i in range(18):
+        M, N, K = 8 * (i + 1), 16, 32
+        bpl = {"dram": 100.0 * (i + 1) ** 2, "sram": 10.0 * (i + 1),
+               "rf": 5.0}
+        t_ns = 0.002 * M * N * K + 0.05 * bpl["dram"]
+        rows.append(FidelityRow(
+            plan_key=f"k{i}", manifest_digest=f"m{i}", gemm_type="s",
+            dims=(M, N, K), weight=1, predicted_energy=1.0,
+            predicted_bytes_per_level=bpl, measured_time_s=t_ns * 1e-9))
+    return record_rows(_finalize_report(rows, gate=0.9, min_family=3),
+                       root, "synthetic")
+
+
+@pytest.mark.parametrize("command", [
+    "capture", "trace", "build --chains", "fidelity", "calibrate"])
+def test_ported_plan_commands_run(tmp_path, capsys, command):
+    """The plan commands that were refused before program capture and
+    fidelity were ported run, each with the reference's exit code: 0, or
+    for fidelity and calibrate whether the report passes its gate."""
+    import json
+    from repro_torch.obs.calibrate import fit_jsonl
+    db = str(tmp_path / "db")
+    small = ["--hw", "gemmini-like", "--store", db]
+    if command == "capture":
+        rc = cli.main(["capture", "--model", "qwen3-0.6b", "--phase",
+                       "prefill", "--seq", "64", "--jobs", "1", *small])
+        assert rc == 0
+        assert "[program]" in capsys.readouterr().out
+        assert PlanStore(db).num_fused() == 1
+    elif command == "trace":
+        assert cli.main(["trace", "--model", "qwen3-0.6b", "--seq", "64",
+                         *small]) == 0
+        assert "capture.trace" in capsys.readouterr().out
+    elif command == "build --chains":
+        assert cli.main(["build", "--model", "qwen3-0.6b", "--chains",
+                         "--seqs", "64", "--jobs", "1", *small]) == 0
+        assert "[chains] 1 chain plans" in capsys.readouterr().out
+    elif command == "fidelity":
+        out = tmp_path / "report.json"
+        rc = cli.main(["fidelity", "--manifest",
+                       str(_fidelity_manifest(tmp_path / "m.json")),
+                       "--device", "cpu", "--repeats", "1", "--warmup", "1",
+                       "--store", db, "--out", str(out)])
+        rep = json.loads(out.read_text())
+        assert rc == (0 if rep["summary"]["passes"] else 1)
+        assert len(rep["rows"]) == 4
+        assert (tmp_path / "db" / "fidelity" / "t.jsonl").is_file()
+    else:
+        rows = _calibration_rows(tmp_path)
+        rc = cli.main(["calibrate", "--rows", str(rows), "--save",
+                       "--store", db])
+        assert rc == (0 if fit_jsonl(rows).passes() else 1) == 0
+        assert (tmp_path / "db" / "calibration" /
+                "calibration.json").is_file()
 
 
 def _serve(*args: str) -> str:
