@@ -43,7 +43,17 @@ one's launch counts:
   store misses in the first replay, phase 11's streams and launches per
   pass), and phase 14's smoke fleet with a model drafter prewarmed the
   same way (the drafter's groups in the store, 0 solver calls, card ==
-  CPU == static oracle).
+  CPU == static oracle);
+- the rest of the catalog (phase 17): the ``gemma2-27b`` (sliding
+  windows on alternate layers, softcaps), ``llava-next-34b`` (a prefix
+  of patches) and ``seamless-m4t-medium`` (encoder, cross-attention)
+  smoke configs, card == CPU, and gemma2's behind the scheduler; at
+  full width gemma2-27b statically (prompts past its window, 9 key
+  blocks) and behind the scheduler from an enumerated prewarm, B1 and
+  ``goma_combine`` with exact counts at phase-3 shapes, 0 solver calls;
+  llava-next-34b statically behind 2880 patches (B1, ``goma_combine``);
+  seamless-m4t-medium statically (no GOMA kernel); the fp32 gates at 4
+  layers.
 
 Imports nothing of JAX and nothing of the reference package.
 
@@ -57,9 +67,10 @@ device time by kernel and the device's busy and idle shares go to
 ``DIR/profile_serve_rwkv.{json,txt}`` and
 ``DIR/profile_serve_zamba2.{json,txt}``, and one more scheduler replay
 to ``DIR/profile_sched.{json,txt}``; phase 13's profiled MoE replay
-(device only) goes to ``DIR/profile_sched_moe.{json,txt}``.  Any failed phase raises and
-ends the script with a non-zero code; without a CUDA card it prints no
-result.
+(device only) goes to ``DIR/profile_sched_moe.{json,txt}``, phase 17's
+profiled generates to ``DIR/profile_serve_<arch>.{json,txt}``.  Any
+failed phase raises and ends the script with a non-zero code; without a
+CUDA card it prints no result.
 """
 from __future__ import annotations
 
@@ -200,6 +211,43 @@ FIDELITY_SMOKE_CACHE = 64
 # runs at every row count up to this
 CAPTURE_FLEET_ROWS = (SPEC_SMOKE["prefix_len"] + 23 + SCHED_SMOKE["new_tokens"]
                       + SPEC_SMOKE["spec_width"])
+# the rest of the catalog (phase 17).  The smoke configs, fp32: gemma2's
+# prompt runs past its window of 8 and its cache past one key block of 512
+# (three blocks); llava's 6 patches and seamless's 6 frames come from the
+# seed.  B2 runs gemma2's and llava's static smoke prefills at batch x
+# (prefix +) prompt rows
+CATALOG_SMOKE = dict(gemma2_prompt=24, gemma2_cache=1100)
+CATALOG_SMOKE_ROWS = (FULL["batch"] * CATALOG_SMOKE["gemma2_prompt"],
+                      FULL["batch"] * (6 + FULL["prompt_len"]))
+# gemma2-27b at its published widths (arXiv:2408.00118), bf16: a static
+# batch of 2 prompts of 4160 tokens, past the local layers' window of
+# 4096, and 8 new tokens in a cache of 4176 (9 key blocks of 512) ...
+GEMMA2_FULL = dict(batch=2, prompt_len=4160, new_tokens=8)
+# ... and behind the scheduler: 12 Poisson requests at 8 a second, 10 with
+# prompts of 16-200 tokens and 2 (these ids) of 4150-4200, 16 new tokens,
+# 4 slots, chunks of 8, 32 and 128; a prompt of 4200 pads to 4224
+# positions, so a cache of 4352 holds it and its new tokens
+GEMMA2_SCHED = dict(slots=4, chunk_widths=(8, 32, 128), requests=12,
+                    arrival_rate=8.0, short=(16, 200), long=(4150, 4200),
+                    long_ids=(3, 8), new_tokens=16, cache_len=4352)
+# llava-next-34b at its published widths (yi-34b's backbone), bf16: the
+# anyres stub's 2880 patches in front of prompts of 16, 8 new tokens
+LLAVA_FULL = dict(batch=2, prompt_len=16, new_tokens=8)
+# seamless-m4t-medium at its published widths (arXiv:2308.11596), bf16:
+# 1024 frames into the encoder, prompts of 16, 8 new tokens
+SEAMLESS_FULL = dict(batch=4, prompt_len=16, new_tokens=8)
+# phase 17's fp32 gates run the served weights' first layers (the full
+# depths' fp32 weights do not fit beside the served ones)
+CATALOG_GATE_LAYERS = 4
+# their MLPs at decode, the scheduler's slots and chunk widths, and the
+# prefills (batch x prompt; llava's batch x (patches + prompt))
+SERVED_MLPS.update({
+    "gemma2-27b": (tuple(sorted({
+        GEMMA2_FULL["batch"], GEMMA2_SCHED["slots"],
+        *GEMMA2_SCHED["chunk_widths"],
+        GEMMA2_FULL["batch"] * GEMMA2_FULL["prompt_len"]})), 36864, 4608),
+    "llava-next-34b": ((LLAVA_FULL["batch"], LLAVA_FULL["batch"]
+                        * (2880 + LLAVA_FULL["prompt_len"])), 20480, 7168)})
 
 
 @contextlib.contextmanager
@@ -336,7 +384,9 @@ def b1_operands(plan, dtype, gen):
 
 def check_b1(shape, dtype, gen, *, timed: bool) -> dict:
     """B1 against its plain version on padded operands under the H100
-    plan, with its CTA decomposition; with ``timed``, also kernel, plain
+    plan (with the seconds its planning took: the solve, the first time
+    a shape is planned in the process), with its CTA decomposition; with
+    ``timed``, also kernel, plain
     and torch.matmul times (events, and device time by the profiler), the
     kernel's device time at every slice width, and its shares."""
     from repro_torch.core.hopper_mapping import plan_gemm_tiling
@@ -345,13 +395,15 @@ def check_b1(shape, dtype, gen, *, timed: bool) -> dict:
                                                cta_tiles, goma_matmul,
                                                goma_matmul_plain)
     M, N, K = shape
+    t0 = time.perf_counter()
     plan = plan_gemm_tiling(M, N, K, dtype_bytes=dtype.itemsize)
+    plan_s = time.perf_counter() - t0
     pm, pn, pk = plan.padded
     a, b = b1_operands(plan, dtype, gen)
     got = goma_matmul(a, b, plan)
     want = goma_matmul_plain(a, b, plan)
     torch.cuda.synchronize()
-    row = {"shape": [M, N, K], "padded": [pm, pn, pk],
+    row = {"shape": [M, N, K], "padded": [pm, pn, pk], "plan_s": plan_s,
            "block": list(plan.block), "grid_order": "".join(plan.grid_order),
            "dtype": dtype_name(dtype),
            "max_abs_err": close(got, want, TOL[dtype])}
@@ -840,12 +892,27 @@ def held_shapes(seen: dict, counts: dict, checked: set) -> dict:
             for name in counts}
 
 
-def serve_smoke(arch: str, prompt_len: int, expect: tuple[str, ...],
+def frontend_inputs(cfg, batch: int, device) -> dict | None:
+    """The frontend's stand-in for the VLM (patches) and the
+    encoder-decoder (frames): (batch, frontend_len, d_model) fp32,
+    normal with std 0.02, from the seed; None for the other families."""
+    if cfg.family not in ("vlm", "encdec"):
+        return None
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    key = "patches" if cfg.family == "vlm" else "frames"
+    return {key: torch.randn((batch, cfg.frontend_len, cfg.d_model),
+                             generator=gen, device=device) * 0.02}
+
+
+def serve_smoke(arch: str, prompt_len: int, expect: tuple[str, ...], *,
+                cache_len: int = 32, checked: set | None = None,
                 **knobs) -> dict:
     """``arch``'s smoke config, fp32, with the config ``knobs`` set: one
-    set of weights made on the CPU; greedy tokens on the card (kernels)
+    set of weights made on the CPU (and the frontend's inputs, for the
+    VLM and the encoder-decoder); greedy tokens on the card (kernels)
     equal those on the CPU (plain versions), and every kernel named in
-    ``expect`` launched on the card."""
+    ``expect`` launched on the card.  With ``checked`` every launch must
+    be at a shape phase 3 held."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.model import tree_to
@@ -855,12 +922,19 @@ def serve_smoke(arch: str, prompt_len: int, expect: tuple[str, ...],
     params = model.init_params(torch.Generator().manual_seed(SEED), "cpu")
     prompts = np.random.default_rng(SEED).integers(
         0, cfg.vocab, (FULL["batch"], prompt_len)).astype(np.int32)
-    scfg = ServeConfig(max_new_tokens=FULL["new_tokens"], cache_len=32)
-    cpu_tokens = Engine(model, params, scfg).generate(prompts)
+    extra = frontend_inputs(cfg, FULL["batch"], "cpu")
+    scfg = ServeConfig(max_new_tokens=FULL["new_tokens"],
+                       cache_len=cache_len)
+    cpu_tokens = Engine(model, params, scfg).generate(prompts,
+                                                      extra_batch=extra)
     card = Engine(model, tree_to(params, "cuda"), scfg)
     reset_launches()
-    card_tokens = card.generate(prompts)
+    seen = {}
+    with recording_shapes(seen):
+        card_tokens = card.generate(prompts, extra_batch=extra)
     launches = launch_counts()
+    if checked is not None:
+        held_shapes(seen, launches, checked)
     missing = [k for k in expect if launches[k] <= 0]
     if missing:
         raise AssertionError(f"the {arch} smoke run never launched "
@@ -933,11 +1007,13 @@ def prefill_paths(cfg, params, toks) -> dict:
 
 def expected_launches(cfg, passes: int) -> dict:
     """Every kernel's launches in one full-width generate of ``passes``
-    forward passes.  Unfused MLPs (llama3-8b's layers, zamba2-2.7b's
+    forward passes.  Unfused MLPs (the dense and VLM layers, zamba2-2.7b's
     shared block; the chains do not fuse at these widths) take three B1
-    launches and one goma_combine a pass; the scans run once per layer,
-    in the prefill only (decode is the recurrent step)."""
-    mlps = {"dense": cfg.layers, "rwkv": 0,
+    launches and one goma_combine a pass; the encoder-decoder's MLPs are
+    plain products, as the reference calls them; the scans run once per
+    layer, in the prefill only (decode is the recurrent step)."""
+    mlps = {"dense": cfg.layers, "vlm": cfg.layers, "encdec": 0,
+            "rwkv": 0,
             "hybrid": cfg.layers // max(cfg.attn_every, 1)}[cfg.family]
     mlps = mlps if cfg.fused_mlp else 0
     scans = cfg.layers if cfg.use_pallas_scan else 0
@@ -947,76 +1023,120 @@ def expected_launches(cfg, passes: int) -> dict:
             "ssd_scan": scans if cfg.family == "hybrid" else 0}
 
 
+def make_full(arch: str, **knobs):
+    """``arch`` at its published widths with the config ``knobs`` set,
+    random weights made on the card: (config, model, params)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(arch), **knobs)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    torch.cuda.synchronize()
+    print(f"  {arch}: {sum(t.numel() for t in leaves(params))} parameters, "
+          f"{torch.cuda.memory_allocated() / 2**30} GiB on the card, made "
+          f"in {time.perf_counter() - t0:.1f} s")
+    return cfg, model, params
+
+
+def static_full(cfg, model, params, run: dict, checked: set, smi: str,
+                out: pathlib.Path | None,
+                profile_name: str | None = None) -> dict:
+    """One static generate at full width (``run``: batch, prompt_len,
+    new_tokens; the frontend's inputs from the seed), with exact launch
+    counts (expected_launches), every launch at a shape phase 3 held and
+    finite logits; then a second one, timed, with equal tokens.  With
+    ``out``, one more generate runs under the profiler
+    (``out/<profile_name>.{json,txt}``, by default
+    ``profile_serve_<arch>``)."""
+    from repro_torch.core.solver import reset_solver_stats, solver_stats
+    from repro_torch.serving import Engine, ServeConfig
+    B, S, new = run["batch"], run["prompt_len"], run["new_tokens"]
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (B, S)).astype(np.int32)
+    extra = frontend_inputs(cfg, B, "cuda")
+    prefix = cfg.frontend_len if cfg.family == "vlm" else 0
+    finite = watch_logits(model)
+    eng = Engine(model, params, ServeConfig(
+        max_new_tokens=new, cache_len=prefix + S + new + 8))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    reset_solver_stats()
+    seen = {}
+    t0 = time.perf_counter()
+    with recording_shapes(seen):
+        tokens = eng.generate(prompts, extra_batch=extra)
+    first_s = time.perf_counter() - t0
+    counts = launch_counts()
+    solves = solver_stats()["calls"]
+    passes = len(finite)
+    del model._lm_logits        # watch_logits' wrapper: this run only
+    if tokens.shape != (B, new) or not ((tokens >= 0)
+                                        & (tokens < cfg.vocab)).all():
+        raise AssertionError(f"bad tokens {tokens.tolist()}")
+    if not all(bool(f) for f in finite):
+        raise AssertionError(f"non-finite logits in {cfg.name}")
+    want = expected_launches(cfg, passes)
+    if counts != want:
+        raise AssertionError(f"{cfg.name} launches {counts} != {want} "
+                             f"({passes} forward passes)")
+    shapes = held_shapes(seen, counts, checked)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = eng.generate(prompts, extra_batch=extra)
+    dt = time.perf_counter() - t0
+    if not np.array_equal(again, tokens):
+        raise AssertionError("a second greedy run gave other tokens")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    serve = {"tokens_per_s": B * new / dt, "seconds": dt,
+             "first_run_seconds": first_s, "first_run_solver_calls": solves,
+             "forward_passes": passes, "peak_memory_gib": peak,
+             "cache_len": eng.cfg.cache_len}
+    print(f"  static generate, batch {B}, prompt {S}, prefix {prefix}, "
+          f"{new} new tokens, cache {eng.cfg.cache_len}: tokens "
+          f"{tokens.tolist()}")
+    print(f"  forward passes {passes}, launches {counts}")
+    print(f"  launches by shape (each held in phase 3): {seen}")
+    print(f"  {B * new / dt} tokens/s ({dt} s for {B}x{new} tokens; first "
+          f"run {first_s} s with {solves} solver calls), peak memory "
+          f"{peak} GiB")
+    if out is not None:
+        serve["profile"] = profile_run(
+            lambda: eng.generate(prompts, extra_batch=extra), smi, out,
+            profile_name or f"profile_serve_{cfg.name}")
+    return {"launches": counts, "shapes": shapes, "serve": serve,
+            "prompts": prompts, "extra": extra}
+
+
 def serve_full(arch: str, prompt_len: int, smi: str,
                out: pathlib.Path | None, profile_name: str, checked: set,
                *, check_paths: bool, **knobs) -> dict:
     """``arch`` at its published widths, bf16, random weights made on the
     card, with the config ``knobs`` set.  With ``check_paths`` the first
     prefill's logits are held against the plain path's on the card
-    (prefill_paths).  Then one generate with exact launch counts
-    (expected_launches), every kernel launched at a shape and dtype in
-    ``checked`` (the phase-3 rows, by checked_key), and finite logits;
-    and a second, timed.  With ``out``, one more generate runs under the
-    profiler."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import build_model
-    from repro_torch.serving import Engine, ServeConfig
-    cfg = dataclasses.replace(get_config(arch), **knobs)
-    model = build_model(cfg)
-    params = model.init_params(
-        torch.Generator(device="cuda").manual_seed(SEED), "cuda")
-    B, S, new = FULL["batch"], prompt_len, FULL["new_tokens"]
-    prompts = np.random.default_rng(SEED).integers(
-        0, cfg.vocab, (B, S)).astype(np.int32)
+    (prefill_paths).  Then FULL's static generate (static_full): exact
+    launch counts, every kernel launched at a shape and dtype phase 3
+    held, finite logits, and a second run, timed; with ``out``, one more
+    under the profiler."""
+    cfg, model, params = make_full(arch, **knobs)
     paths = None
     if check_paths:
+        prompts = np.random.default_rng(SEED).integers(
+            0, cfg.vocab, (FULL["batch"], prompt_len)).astype(np.int32)
         paths = prefill_paths(
             cfg, params, torch.as_tensor(prompts, dtype=torch.int64,
                                          device="cuda"))
         print(f"  first prefill, kernel path vs plain path: {paths} "
               f"(fp32 tol {PATH_TOL} x scale)")
         free_device()
-
-    finite = watch_logits(model)
-    eng = Engine(model, params, ServeConfig(max_new_tokens=new,
-                                            cache_len=S + new + 8))
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    seen = {}
-    with recording_shapes(seen):
-        tokens = eng.generate(prompts)
-    counts = launch_counts()
-    passes = len(finite)
-    if tokens.shape != (B, new) or not ((tokens >= 0)
-                                        & (tokens < cfg.vocab)).all():
-        raise AssertionError(f"bad tokens {tokens.tolist()}")
-    if not all(bool(f) for f in finite):
-        raise AssertionError(f"non-finite logits in {arch} at full width")
-    want = expected_launches(cfg, passes)
-    if counts != want:
-        raise AssertionError(f"{arch} launches {counts} != {want} "
-                             f"({passes} forward passes)")
-    shapes = held_shapes(seen, counts, checked)
-    # a second run, timed, once every plan is cached
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    again = eng.generate(prompts)
-    dt = time.perf_counter() - t0
-    if not np.array_equal(again, tokens):
-        raise AssertionError("a second greedy run gave other tokens")
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  tokens: {tokens.tolist()}")
-    print(f"  forward passes {passes}, launches {counts}")
-    print(f"  launches by shape (each held in phase 3): {seen}")
-    print(f"  generate: {B * new / dt} tokens/s "
-          f"({dt} s for {B}x{new} tokens), peak memory {peak} GiB")
-    if out is not None:
-        profile_run(lambda: eng.generate(prompts), smi, out, profile_name)
-    serve = {"tokens_per_s": B * new / dt, "seconds": dt,
-             "forward_passes": passes, "peak_memory_gib": peak}
+    run = static_full(cfg, model, params,
+                      dict(batch=FULL["batch"], prompt_len=prompt_len,
+                           new_tokens=FULL["new_tokens"]),
+                      checked, smi, out, profile_name)
     if paths is not None:
-        serve["prefill_vs_plain_path"] = paths
-    return {"launches": counts, "shapes": shapes, "serve": serve}
+        run["serve"]["prefill_vs_plain_path"] = paths
+    return run
 
 
 # ---------------------------------------------------------- phases 10-11
@@ -1058,18 +1178,18 @@ def oracle_tokens(eng, req) -> list[int]:
     return out
 
 
-def sched_smoke(checked: set) -> dict:
-    """The continuous scheduler on llama3-8b's smoke config, fp32, fused
-    MLP (B2): bench_serving's smoke trace on the card, every stream equal
-    to the static oracle's on the card and to the same replay on the CPU;
-    B2 launched once per layer and forward pass, every launch at a shape
+def sched_smoke(checked: set, arch: str = "llama3-8b") -> dict:
+    """The continuous scheduler on ``arch``'s smoke config (llama3-8b's,
+    or gemma2-27b's with its windows per row), fp32, fused MLP (B2):
+    bench_serving's smoke trace on the card, every stream equal to the
+    static oracle's on the card and to the same replay on the CPU; B2
+    launched once per layer and forward pass, every launch at a shape
     phase 3 held (``checked``)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.model import tree_to
     from repro_torch.serving import Engine, ServeConfig
-    cfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
-                              fused_mlp=True)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), fused_mlp=True)
     model = build_model(cfg)
     params = model.init_params(torch.Generator().manual_seed(SEED), "cpu")
     reqs = smoke_trace(cfg.vocab)
@@ -2584,6 +2704,235 @@ def capture_fleet_smoke(checked: set, store_dir: pathlib.Path) -> dict:
             "serve": {"prewarm": prewarm, "forward_passes": passes}}
 
 
+# ------------------------------------------------------------- phase 17
+def catalog_smoke(checked: set) -> dict:
+    """The rest of the catalog's smoke configs, fp32, card tokens == CPU
+    tokens: gemma2 with its fused MLP (B2) at a prompt past its window
+    and a cache of three key blocks, llava with its 6-patch prefix (B2),
+    seamless with its 6 frames (no GOMA kernel: its MLPs are plain, as
+    the reference calls them), every B2 launch at a shape phase 3 held;
+    and gemma2 behind the scheduler, card == CPU == static oracle."""
+    runs = {}
+    runs["serve gemma2-27b smoke"] = serve_smoke(
+        "gemma2-27b", CATALOG_SMOKE["gemma2_prompt"], ("goma_fused_matmul",),
+        cache_len=CATALOG_SMOKE["gemma2_cache"], checked=checked,
+        fused_mlp=True)
+    runs["serve llava-next-34b smoke"] = serve_smoke(
+        "llava-next-34b", FULL["prompt_len"], ("goma_fused_matmul",),
+        checked=checked, fused_mlp=True)
+    launches = serve_smoke("seamless-m4t-medium", FULL["prompt_len"], ())
+    if any(launches.values()):
+        raise AssertionError(f"seamless smoke launched {launches}")
+    runs["serve seamless-m4t-medium smoke"] = launches
+    gemma = sched_smoke(checked, "gemma2-27b")
+    runs["scheduler gemma2-27b smoke"] = gemma["launches"]
+    return {"launches": runs, "shapes": {"scheduler gemma2-27b smoke":
+                                         gemma["shapes"]}}
+
+
+def gate_params(params: dict, layers: int) -> dict:
+    """The served weights' first ``layers`` layers in fp32, made after
+    the rest of the served layers are freed: the cut waits on the host
+    while ``params["layers"]`` goes (the caller drops its references)."""
+    from repro_torch.models.model import tree_to
+    host = tree_to(first_layers(params["layers"], layers), "cpu")
+    rest = {k: v for k, v in params.items() if k != "layers"}
+    params.clear()
+    free_device()
+    return tree_float(dict(rest, layers=tree_to(host, "cuda")))
+
+
+def gate_prefill(cfg, params32, prompts, extra) -> float:
+    """The first prefill's logits at CATALOG_GATE_LAYERS layers in fp32:
+    the kernel path (the fused MLP: B1 and goma_combine) against the
+    plain path, within PATH_TOL of scale.  Returns the max abs error."""
+    from repro_torch.models import build_model
+    cfg4 = dataclasses.replace(cfg, layers=CATALOG_GATE_LAYERS,
+                               compute_dtype="float32")
+    batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64,
+                                       device="cuda"), **(extra or {})}
+    prefix = cfg.frontend_len if cfg.family == "vlm" else 0
+    max_len = prefix + prompts.shape[1]
+    with torch.inference_mode():
+        want = build_model(dataclasses.replace(cfg4, fused_mlp=False)
+                           ).prefill(params32, batch, max_len=max_len)[0]
+        reset_launches()
+        got = build_model(cfg4).prefill(params32, batch, max_len=max_len)[0]
+    counts = launch_counts()
+    if counts["goma_matmul"] != 3 * CATALOG_GATE_LAYERS:
+        raise AssertionError(f"the gate's kernel path launched {counts}")
+    return close_to_scale(got, want, PATH_TOL)
+
+
+def gemma2_sched_trace(vocab: int) -> list:
+    """GEMMA2_SCHED's trace: phase 11's Poisson arrivals and short
+    prompts, with two requests' prompts past the window."""
+    from repro_torch.serving.sched import TrafficConfig, poisson_trace
+    g = GEMMA2_SCHED
+    trace = poisson_trace(TrafficConfig(
+        n_requests=g["requests"], arrival_rate=g["arrival_rate"],
+        prompt_mix=(g["short"] + (1.0,),), max_new_tokens=g["new_tokens"],
+        vocab=vocab, seed=SEED))
+    rng = np.random.default_rng(SEED)
+    for i in g["long_ids"]:
+        n = int(rng.integers(g["long"][0], g["long"][1] + 1))
+        trace[i] = dataclasses.replace(
+            trace[i], tokens=rng.integers(0, vocab, (n,)).astype(np.int32))
+    return trace
+
+
+def gemma2_full(checked: set, store_dir: pathlib.Path, smi: str,
+                out: pathlib.Path | None) -> dict:
+    """gemma2-27b at its published widths, bf16, fused MLP on (the chains
+    do not fuse: three B1 launches and a goma_combine a layer a pass):
+    the static generate (static_full), then GEMMA2_SCHED's trace behind
+    the scheduler, prewarmed from a fresh plan store with the enumerated
+    source (capture traces 9 key blocks x 46 layers per program, PERF.md
+    §7): exact launch counts, every launch at a shape phase 3 held, 0
+    solver calls in both replays, the second one timed with equal
+    streams; then the fp32 gate at CATALOG_GATE_LAYERS layers: the first
+    prefill's kernel path against the plain path, and the trace again
+    with every emitted token's logits row within PATH_TOL of scale of
+    the teacher-forced static prefill."""
+    from repro_torch.core.solver import reset_solver_stats, solver_stats
+    from repro_torch.models import build_model
+    from repro_torch.planner import PlanStore
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving.sched import (ContinuousScheduler, SchedConfig,
+                                           TraceClock, replay)
+    cfg, model, params = make_full("gemma2-27b", fused_mlp=True)
+    static = static_full(cfg, model, params, GEMMA2_FULL, checked, smi, out)
+    free_device()
+
+    g = GEMMA2_SCHED
+    trace = gemma2_sched_trace(cfg.vocab)
+    knobs = dict(slots=g["slots"], chunk_widths=g["chunk_widths"])
+    scfg = ServeConfig(max_new_tokens=g["new_tokens"],
+                       cache_len=g["cache_len"])
+    store = PlanStore(store_dir)
+    reset_solver_stats()
+    t0 = time.perf_counter()
+    clock = TraceClock()
+    sched = ContinuousScheduler(
+        Engine(model, params, scfg, plan_store=store),
+        SchedConfig(**knobs, prewarm_source="enumerated"),
+        arch_id="gemma2-27b", clock=clock.now)
+    prewarm_s = time.perf_counter() - t0
+    prewarm_solves = solver_stats()["calls"]
+    print(f"  scheduler prewarm (enumerated, fresh store): "
+          f"{sched.prewarmed_plans} GEMM tilings, {sched.prewarmed_chains} "
+          f"chains, {prewarm_solves} solver calls in {prewarm_s} s")
+    finite = watch_logits(model)
+    reset_launches()
+    reset_solver_stats()
+    seen = {}
+    with recording_shapes(seen):
+        streams = {r.req_id: (r.tokens, r.finish_reason)
+                   for r in replay(sched, trace, clock)}
+    counts = launch_counts()
+    first_solves = solver_stats()["calls"]
+    del model._lm_logits
+    passes = sched.metrics.prefill_chunks + sched.metrics.decode_steps
+    want = {**{k: 0 for k in counts},
+            "goma_matmul": 3 * cfg.layers * passes,
+            "goma_combine": cfg.layers * passes}
+    if counts != want or first_solves:
+        raise AssertionError(f"scheduler launches {counts} != {want} "
+                             f"({passes} passes) or {first_solves} solver "
+                             f"calls")
+    if len(finite) != passes or not all(bool(f) for f in finite):
+        raise AssertionError(f"non-finite logits or {len(finite)} passes")
+    shapes = held_shapes(seen, counts, checked)
+    if any(len(streams[r.req_id][0]) != r.max_new_tokens for r in trace):
+        raise AssertionError(f"bad streams {streams}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_solver_stats()
+    timed, again = replay_trace(Engine(model, params, scfg, plan_store=store),
+                                trace, arch_id="gemma2-27b",
+                                prewarm_source="enumerated", **knobs)
+    torch.cuda.synchronize()
+    solves = solver_stats()["calls"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if again != streams or solves:
+        raise AssertionError(f"the timed replay made {solves} solver calls "
+                             f"or gave other streams")
+    summ = timed.metrics.summary()
+    print(f"  scheduler: {len(trace)} requests (prompts "
+          f"{[r.prompt_len for r in trace]}), streams {streams}")
+    print(f"  forward passes {passes} ({sched.metrics.prefill_chunks} "
+          f"prefill chunks, {sched.metrics.decode_steps} decode ticks), "
+          f"launches {counts}, solver calls 0 and {solves}")
+    print(f"  launches by shape (each held in phase 3): {seen}")
+    print(f"  metrics: {summ}")
+    print(f"  tokens/s {summ['tokens_per_s']}, ttft p50/p95 "
+          f"{summ['ttft_p50_s']}/{summ['ttft_p95_s']} s, tpot p50 "
+          f"{summ['tpot_p50_s']} s, peak memory {peak} GiB")
+    del sched, timed
+
+    # fp32: the served weights' first layers
+    t0 = time.perf_counter()
+    params32 = gate_params(params, CATALOG_GATE_LAYERS)
+    del params
+    prefill_err = gate_prefill(cfg, params32, static["prompts"], None)
+    model32 = build_model(dataclasses.replace(
+        cfg, layers=CATALOG_GATE_LAYERS, compute_dtype="float32"))
+    clock = TraceClock()
+    holder = {}
+    rows, slot_of, on_token = capture_emitted_logits(model32, holder)
+    sched = ContinuousScheduler(Engine(model32, params32, scfg),
+                                SchedConfig(**knobs), clock=clock.now,
+                                on_token=on_token)
+    holder["scheds"] = [sched]
+    results = replay(sched, trace, clock)
+    del model32.decode_step
+    errs = teacher_forced_errs(model32, params32, trace, results, rows)
+    worst = max(max(e) for e in errs.values())
+    print(f"  fp32 at {CATALOG_GATE_LAYERS} layers "
+          f"({time.perf_counter() - t0:.1f} s): first prefill, kernel path "
+          f"vs plain path, max abs err {prefill_err}; every emitted "
+          f"token's logits row vs the teacher-forced static prefill, "
+          f"largest max abs err {worst} (tol {PATH_TOL} x scale)")
+    return {"launches": {"static": static["launches"], "scheduler": counts},
+            "shapes": {"static": static["shapes"], "scheduler": shapes},
+            "serve": {"static": static["serve"], "metrics": summ,
+                      "peak_memory_gib": peak, "forward_passes": passes,
+                      "prewarm_s": prewarm_s,
+                      "prewarm_solver_calls": prewarm_solves,
+                      "solver_calls": [first_solves, solves],
+                      "fp32_prefill_err": prefill_err,
+                      "fp32_logits_err": errs}}
+
+
+def llava_full(checked: set, smi: str, out: pathlib.Path | None) -> dict:
+    """llava-next-34b at its published widths, bf16, fused MLP on: the
+    static generate with its 2880 patches (static_full); then, the model
+    freed, the fp32 gate at CATALOG_GATE_LAYERS layers on the first
+    prefill, kernel path against plain path."""
+    cfg, model, params = make_full("llava-next-34b", fused_mlp=True)
+    static = static_full(cfg, model, params, LLAVA_FULL, checked, smi, out)
+    t0 = time.perf_counter()
+    params32 = gate_params(params, CATALOG_GATE_LAYERS)
+    del params
+    err = gate_prefill(cfg, params32, static["prompts"], static["extra"])
+    print(f"  fp32 at {CATALOG_GATE_LAYERS} layers "
+          f"({time.perf_counter() - t0:.1f} s): first prefill, kernel path "
+          f"vs plain path, max abs err {err} (tol {PATH_TOL} x scale)")
+    return {"launches": static["launches"], "shapes": static["shapes"],
+            "serve": dict(static["serve"], fp32_prefill_err=err)}
+
+
+def seamless_full(checked: set, smi: str,
+                  out: pathlib.Path | None) -> dict:
+    """seamless-m4t-medium at its published widths, bf16: the static
+    generate with its 1024 frames (static_full); no GOMA kernel launches
+    (its MLPs are plain, as the reference calls them)."""
+    cfg, model, params = make_full("seamless-m4t-medium")
+    static = static_full(cfg, model, params, SEAMLESS_FULL, checked, smi,
+                         out)
+    return {"launches": static["launches"], "serve": static["serve"]}
+
+
 def profile_run(fn, smi: str, out: pathlib.Path | None, name: str, *,
                 host_ops: bool = True) -> dict:
     """One more run of fn (a generate, a scheduler replay) under
@@ -2724,11 +3073,11 @@ def main() -> None:
             b2_rows.append(check_b2(M, 128, 64, torch.float32, gen,
                                     timed=True))
         # ... and, untimed, at every row count phase 16's model drafter
-        # can run it at
+        # can run it at and at phase 17's smoke prefills
         held_b2 = {r["shape"][0] for r in b2_rows}
         b2_rows += [check_b2(M, 128, 64, torch.float32, gen, timed=False)
-                    for M in range(1, CAPTURE_FLEET_ROWS + 1)
-                    if M not in held_b2]
+                    for M in sorted({*range(1, CAPTURE_FLEET_ROWS + 1),
+                                     *CATALOG_SMOKE_ROWS} - held_b2)]
         # the composition's combine: an odd fp32 shape, and every served
         # MLP's strip at decode and in the prefill
         combine_rows.append(check_combine((129, 257), torch.float32, gen,
@@ -2866,6 +3215,37 @@ def main() -> None:
         shapes["router llama3-8b smoke, model drafter, capture prewarm"] = \
             cap_fleet["shapes"]
     free_device()
+    with phase("17 the rest of the catalog: gemma2-27b (windows, softcaps), "
+               "llava-next-34b and seamless-m4t-medium, smoke and full width "
+               "(B2; B1, goma_combine)"):
+        t0 = time.perf_counter()
+        cat_smoke = catalog_smoke(checked)
+        runs.update(cat_smoke["launches"])
+        shapes.update(cat_smoke["shapes"])
+        print(f"  smoke configs: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        gemma = gemma2_full(checked, stores / "gemma2", smi, out)
+        runs["serve gemma2-27b full width"] = gemma["launches"]["static"]
+        shapes["serve gemma2-27b full width"] = gemma["shapes"]["static"]
+        runs["scheduler gemma2-27b full width"] = \
+            gemma["launches"]["scheduler"]
+        shapes["scheduler gemma2-27b full width"] = \
+            gemma["shapes"]["scheduler"]
+        print(f"  gemma2-27b at full width: {time.perf_counter() - t0:.1f} s")
+        free_device()
+        t0 = time.perf_counter()
+        llava = llava_full(checked, smi, out)
+        runs["serve llava-next-34b full width"] = llava["launches"]
+        shapes["serve llava-next-34b full width"] = llava["shapes"]
+        print(f"  llava-next-34b at full width: "
+              f"{time.perf_counter() - t0:.1f} s")
+        free_device()
+        t0 = time.perf_counter()
+        seamless = seamless_full(checked, smi, out)
+        runs["serve seamless-m4t-medium full width"] = seamless["launches"]
+        print(f"  seamless-m4t-medium at full width: "
+              f"{time.perf_counter() - t0:.1f} s")
+    free_device()
 
     b1 = next(r for r in b1_rows if r["shape"] == [4, 14336, 4096])
     b2 = next(r for r in b2_rows if r["shape"] == [4, 128, 64])
@@ -2926,6 +3306,9 @@ def main() -> None:
              "fidelity": fid["fidelity"],
              "capture": {"full_width": cap_full["serve"],
                          "smoke_fleet": cap_fleet["serve"]},
+             "catalog": {"gemma2-27b": gemma["serve"],
+                         "llava-next-34b": llava["serve"],
+                         "seamless-m4t-medium": seamless["serve"]},
              "launches": runs,
              "shapes": shapes,
              "kernels": kernels,

@@ -226,19 +226,38 @@ def _meta_ints(*shape: int) -> torch.Tensor:
     return torch.empty(shape, dtype=torch.int64, device="meta")
 
 
+def _meta_embeds(model, batch: int, length: int) -> torch.Tensor:
+    """A frontend's (batch, length, d_model) embeddings in the compute
+    dtype, on the meta device."""
+    from ..models.layers import dtype_of
+    cfg = model.cfg
+    return torch.empty((batch, length, cfg.d_model),
+                       dtype=dtype_of(cfg.compute_dtype), device="meta")
+
+
 def capture_model_prefill(model, batch: int, seq: int, *,
                           cache_len: int | None = None,
                           name: str | None = None) -> PlanProgram:
     """Capture ``model.prefill`` at (batch, seq) against a cache of
-    ``cache_len`` (defaults to seq)."""
+    ``cache_len`` (defaults to seq); the frontends' inputs are meta
+    stand-ins, as the reference's ``input_specs`` supplies them: the
+    encoder-decoder's frames (batch, frontend_len or seq, d_model), the
+    VLM's patches (batch, frontend_len, d_model)."""
     params = model_param_avals(model)
     max_len = cache_len if cache_len is not None else seq
+    cfg = model.cfg
+    inputs = {"tokens": _meta_ints(batch, seq)}
+    if cfg.family == "encdec":
+        inputs["frames"] = _meta_embeds(model, batch,
+                                        cfg.frontend_len or seq)
+    if cfg.family == "vlm":
+        inputs["patches"] = _meta_embeds(model, batch, cfg.frontend_len)
 
     def fn(p, b):
         return model.prefill(p, b, max_len=max_len)[0]
 
     return captured_program(
-        fn, params, {"tokens": _meta_ints(batch, seq)},
+        fn, params, inputs,
         name=name or f"{model.cfg.name}_prefill_b{batch}_s{seq}")
 
 
@@ -249,9 +268,14 @@ def capture_model_decode(model, batch: int, cache_len: int, *,
     against a cache of ``cache_len`` (width > 1 is a chunked-prefill
     continuation; ``slot_indexed`` uses per-row positions — the
     continuous scheduler's decode signature — else one shared int
-    position)."""
+    position).  The encoder-decoder's cache carries a meta ``enc_out``
+    of (batch, frontend_len or cache_len, d_model), as the reference's
+    ``input_specs`` supplies it."""
     params = model_param_avals(model)
     cache = model.init_cache(batch, cache_len, device="meta")
+    if model.cfg.family == "encdec":
+        cache["enc_out"] = _meta_embeds(
+            model, batch, model.cfg.frontend_len or cache_len)
     index = _meta_ints(batch) if slot_indexed else 0
 
     def fn(p, c, t, i):

@@ -9,6 +9,12 @@
         --scan-kernel --fused-mlp [--smoke] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-moe-16b [--smoke] [--continuous] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \
+        --fused-mlp [--smoke] [--continuous] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llava-next-34b [--fused-mlp] [--smoke] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-medium [--smoke] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --fused-mlp --continuous --replicas 2 --prefix-cache 64 \
         --draft-model ngram --spec-width 4 [--smoke] [--device cpu]
@@ -19,7 +25,8 @@ Two modes:
   * ``--continuous``: the continuous-batching scheduler
     (``repro_torch.serving.sched``) replaying a synthetic Poisson trace —
     chunked prefill interleaved with in-flight decode, slot recycling,
-    per-request streaming.  Dense and MoE archs; ``--replicas N`` routes
+    per-request streaming.  Dense (gemma2 included) and MoE archs, as in
+    the reference; ``--replicas N`` routes
     the trace through the replica router (``serving.router``), and
     ``--prefix-cache`` and ``--draft-model`` add the KV prefix cache and
     speculative decoding.  A recurrent arch behind ``--replicas`` takes
@@ -28,6 +35,10 @@ Two modes:
 Runs on the CUDA card unless ``--device cpu`` is given; without a card
 and without that flag it exits with an error instead of falling back.
 Weights are random, made on the device from a seeded torch.Generator.
+The frontends are stubs, as in the reference: the VLM (llava-next-34b)
+gets zero patch embeddings in front of its prompts, the encoder-decoder
+(seamless-m4t-medium) zero frame embeddings; the VLM's cache also holds
+its patch positions.
 
 ``--plan-db DIR`` (or ``$GOMA_PLAN_DB``) plans every kernel tiling of the
 deployment through a GOMA plan store before the first request: static
@@ -170,9 +181,18 @@ def main(argv: list[str] | None = None) -> None:
     if args.continuous:
         _serve_continuous(args, cfg, model, params, device, store)
         return
+    # the frontends' stand-ins, zeros as the reference's serve supplies
+    # them; the VLM's patches take cache positions before the prompt
+    extra, prefix = None, 0
+    if cfg.family in ("vlm", "encdec"):
+        key = "patches" if cfg.family == "vlm" else "frames"
+        extra = {key: torch.zeros((args.batch, cfg.frontend_len,
+                                   cfg.d_model), device=device)}
+        prefix = cfg.frontend_len if cfg.family == "vlm" else 0
     eng = Engine(model, params, ServeConfig(
         max_new_tokens=args.new_tokens, temperature=args.temperature,
-        cache_len=args.prompt_len + args.new_tokens + 8), plan_store=store)
+        cache_len=prefix + args.prompt_len + args.new_tokens + 8),
+        plan_store=store)
     if store is not None:
         t0 = time.perf_counter()
         n = eng.prewarm_plans(args.arch, args.batch, args.prompt_len,
@@ -184,7 +204,7 @@ def main(argv: list[str] | None = None) -> None:
     prompts = rng.integers(0, cfg.vocab,
                            (args.batch, args.prompt_len)).astype(np.int32)
     t0 = time.perf_counter()
-    out = eng.generate(prompts,
+    out = eng.generate(prompts, extra_batch=extra,
                        rng=torch.Generator(device=device).manual_seed(1)
                        if args.temperature > 0 else None)
     dt = time.perf_counter() - t0

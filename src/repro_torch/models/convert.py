@@ -9,16 +9,18 @@ as ``(d_in, d_out)``, so B1 reads them as ``(K, N)`` row-major.
 The reference keeps the projection weights in the parameter dtype and
 casts them to the compute dtype at every use (``layers.dense``); the
 port casts them once here (``model.PROJECTIONS`` lists them by family:
-attention and MLP weights, RWKV time and channel weights, Mamba2 in and
-out projections, the hybrid's shared block).  The values it multiplies
+attention and MLP weights (the VLM's are the dense ones; the
+encoder-decoder's are its encoder's and its decoder's, cross-attention
+included), RWKV time and channel weights, Mamba2 in and out projections,
+the hybrid's shared block).  The values it multiplies
 are the same.  The MoE family's expert banks ``(E, d_in, d_out)`` and
 shared experts go to the compute dtype too, though the reference upcasts
 them to fp32 at every use (``moe.py`` upcasts them per layer call): with
 an fp32 compute dtype the values are the reference's, with bf16 they are
 those of the reference run with ``param_dtype="bfloat16"``.  Everything
-else keeps the reference's dtype: the MoE router (fp32), norms, mixes,
-the RWKV bonus and decay bias, and Mamba2's A_log, D, dt_bias and conv
-taps.
+else keeps the reference's dtype: the embedding and an untied LM head
+(gemma2-27b's: fp32), the MoE router (fp32), norms, mixes, the RWKV
+bonus and decay bias, and Mamba2's A_log, D, dt_bias and conv taps.
 """
 from __future__ import annotations
 

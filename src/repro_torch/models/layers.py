@@ -3,13 +3,13 @@ counterpart of the reference's ``models/layers.py``).
 
 Parameters are nested dicts of tensors with the reference's layout
 (``(d_in, d_out)`` projection weights), so ``convert.params_from_jax``
-moves a JAX pytree over as it is.  Attention is plain PyTorch: the
-reference leaves it to XLA, so the port has no hand kernel for it.  The
+moves a JAX pytree over as it is.  Attention is plain PyTorch, the
+reference's flash-style walk over key blocks (sliding windows,
+local/global alternation, softcaps, cross-attention): the reference
+leaves it to XLA, so the port has no hand kernel for it.  The
 gated MLP runs through the GOMA-planned kernels when the config asks for
 the fused MLP.  ``pad_seq`` pads a sequence to a scan's chunk for the
 recurrent blocks (``rwkv.py``, ``ssm.py``).
-
-Not ported yet: sliding windows, softcaps and cross-attention.
 """
 from __future__ import annotations
 
@@ -78,37 +78,88 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              q_positions: torch.Tensor,
-              kv_len: int | torch.Tensor | None = None) -> torch.Tensor:
-    """Causal GQA attention in fp32.  q: (B, S, H, hd); k/v: (B, T, KV,
-    hd); key t is visible to a query at position p when t <= p and
-    t < kv_len, where ``kv_len`` is one length for every row or a (B,)
-    tensor of per-row lengths.  The softmax is taken as the reference's
-    flash attention takes it within one key block: exponentials of the
-    shifted scores, weighted sum, then one division by their total."""
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    q_positions: torch.Tensor,
+                    kv_positions: torch.Tensor,
+                    causal: bool = True,
+                    window: int | None = None,
+                    window_active: bool | torch.Tensor | None = None,
+                    kv_len: int | torch.Tensor | None = None,
+                    softcap: float | None = None,
+                    block: int = 512) -> torch.Tensor:
+    """GQA attention in fp32 over key blocks with an online softmax, the
+    reference's algorithm.  q: (B, S, H, hd); k/v: (B, T, KV, hd);
+    q_positions (B, S) or (S,); kv_positions (T,).
+
+    Keys go in blocks of ``min(block, T)``; the last block is padded to
+    the full width with positions 2**30, which no mask lets through.  Key
+    t is visible to a query at position p when kv_positions[t] < kv_len
+    (one length, or a (B,) tensor of per-row lengths; T when None), when
+    it is at or before p if ``causal``, and when p - kv_positions[t] <
+    ``window`` if a window is given and ``window_active`` is not False (a
+    local layer; a bool tensor is taken elementwise, as the reference's
+    traced per-layer switch).  ``softcap`` caps the scaled scores,
+    softcap * tanh(s / softcap), before the mask.  A query with no
+    visible key gets zeros.  With one block there is no carry to rescale:
+    the first block's running max, total and sum are taken as they are,
+    which are the values the reference's rescale of its empty carry
+    gives."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
     qg = q.reshape(B, S, KV, G, hd).to(torch.float32) * (1.0 / math.sqrt(hd))
-    s = torch.einsum("bskgh,btkh->bskgt", qg, k.to(torch.float32))
-    kpos = torch.arange(T, device=q.device)
+    block = min(block, T)
     qpos = q_positions.to(torch.int64)
     if qpos.ndim == 1:
         qpos = qpos[None].expand(B, S)
-    ok = kpos[None, None, :] <= qpos[:, :, None]          # (B, S, T)
-    if isinstance(kv_len, torch.Tensor):
-        ok = ok & (kpos[None, None, :] < kv_len[:, None, None])
-    elif kv_len is not None:
-        ok = ok & (kpos < kv_len)[None, None, :]
-    ok = ok[:, :, None, None, :]
-    s = torch.where(ok, s, -torch.inf)
-    m = torch.amax(s, dim=-1, keepdim=True)
-    m = torch.where(torch.isfinite(m), m, 0.0)
-    p = torch.where(ok, torch.exp(s - m), 0.0)
-    denom = torch.sum(p, dim=-1)
-    out = torch.einsum("bskgt,btkh->bskgh", p, v.to(torch.float32))
-    out = out / torch.clamp(denom, min=1e-20)[..., None]
+    limit = (kv_len.reshape(-1, 1, 1) if isinstance(kv_len, torch.Tensor)
+             else kv_len)
+    windowed = window is not None and window_active is not False
+    m = total = acc = None
+    for start in range(0, T, block):
+        kb = k[:, start:start + block]
+        vb = v[:, start:start + block]
+        kpos = kv_positions[start:start + block].to(torch.int64)
+        pad = block - kb.shape[1]
+        if pad:
+            kb = torch.cat([kb, kb.new_zeros((B, pad, KV, hd))], 1)
+            vb = torch.cat([vb, vb.new_zeros((B, pad, KV, hd))], 1)
+            kpos = torch.cat([kpos, kpos.new_full((pad,), 2**30)])
+            if limit is None:
+                limit = T
+        s = torch.einsum("bskgh,btkh->bskgt", qg, kb.to(torch.float32))
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        ok = None
+        if causal:
+            ok = kpos[None, None, :] <= qpos[:, :, None]      # (B, S, blk)
+        if limit is not None:
+            lim = kpos[None, None, :] < limit
+            ok = lim if ok is None else ok & lim
+        if windowed:
+            in_window = qpos[:, :, None] - kpos[None, None, :] < window
+            if isinstance(window_active, torch.Tensor):
+                in_window = in_window | torch.logical_not(window_active)
+            ok = in_window if ok is None else ok & in_window
+        if ok is not None:
+            ok = ok[:, :, None, None, :]
+            s = torch.where(ok, s, -torch.inf)
+        blk_max = torch.amax(s, dim=-1)
+        m_new = blk_max if m is None else torch.maximum(m, blk_max)
+        # rows with no valid key yet keep m = -inf; guard the exp
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(s - m_safe[..., None])
+        if ok is not None:
+            p = torch.where(ok, p, 0.0)
+        pv = torch.einsum("bskgt,btkh->bskgh", p, vb.to(torch.float32))
+        if m is None:
+            total, acc = torch.sum(p, dim=-1), pv
+        else:
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            total = total * corr + torch.sum(p, dim=-1)
+            acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(total, min=1e-20)[..., None]
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 
@@ -128,25 +179,48 @@ def write_rows(cache: torch.Tensor, new: torch.Tensor,
 
 def attention_apply(p: Params, x: torch.Tensor, *, n_heads: int,
                     kv_heads: int, head_dim: int, rope_theta: float | None,
-                    q_positions: torch.Tensor, cache: Params | None = None,
-                    cache_index: int | torch.Tensor | None = None):
-    """Returns (out, cache).  Cache layout: {"k": (B, T_max, KV, hd),
+                    q_positions: torch.Tensor,
+                    causal: bool = True,
+                    window: int | None = None,
+                    window_active: bool | torch.Tensor | None = None,
+                    softcap: float | None = None,
+                    xkv: torch.Tensor | None = None,
+                    kv_positions: torch.Tensor | None = None,
+                    cache: Params | None = None,
+                    cache_index: int | torch.Tensor | None = None,
+                    static_cache: bool = False,
+                    block: int = 512):
+    """Returns (out, cache).  ``xkv`` (B, T_src, d) switches to
+    cross-attention: keys and values come from it, without rope, at
+    positions arange(T_src).  Cache layout: {"k": (B, T_max, KV, hd),
     "v": ...}.  ``cache_index`` is the write position of a decode step:
     one int for every row, or a (B,) int64 tensor on the cache's device
     with each row's own position (the continuous scheduler's slot-indexed
     decode; attention then masks each row at its own valid length).  None
-    is a prefill that writes [0, S).  Unlike the reference, the cache is
-    updated in place (no second copy of it per step); the returned cache
-    is the same dict."""
+    is a prefill that writes [0, S).  With ``static_cache`` the cache's
+    keys and values are read as they are and nothing is written (a
+    precomputed cross-attention cache; the projections of ``xkv`` are
+    not needed then and are not computed).  Unlike the reference, the
+    cache is updated in place (no second copy of it per step); the
+    returned cache is the same dict."""
     B, S, _ = x.shape
+    src = x if xkv is None else xkv
     q = dense(p["wq"], x).reshape(B, S, n_heads, head_dim)
-    k = dense(p["wk"], x).reshape(B, S, kv_heads, head_dim)
-    v = dense(p["wv"], x).reshape(B, S, kv_heads, head_dim)
-    if rope_theta is not None:
+    static = cache is not None and static_cache
+    if not static:
+        k = dense(p["wk"], src).reshape(B, src.shape[1], kv_heads, head_dim)
+        v = dense(p["wv"], src).reshape(B, src.shape[1], kv_heads, head_dim)
+    if kv_positions is None:
+        kv_positions = (q_positions if xkv is None else
+                        torch.arange(src.shape[1], device=x.device))
+    if rope_theta is not None and xkv is None:
         q = rope(q, q_positions, rope_theta)
-        k = rope(k, q_positions, rope_theta)
+        if not static:
+            k = rope(k, kv_positions, rope_theta)
     kv_len = None
-    if cache is not None and isinstance(cache_index, torch.Tensor):
+    if static:
+        k, v = cache["k"], cache["v"]
+    elif cache is not None and isinstance(cache_index, torch.Tensor):
         write_rows(cache["k"], k, cache_index)
         write_rows(cache["v"], v, cache_index)
         k, v = cache["k"], cache["v"]
@@ -157,7 +231,12 @@ def attention_apply(p: Params, x: torch.Tensor, *, n_heads: int,
         cache["v"][:, start:start + S] = v.to(cache["v"].dtype)
         k, v = cache["k"], cache["v"]
         kv_len = start + S
-    out = attention(q, k, v, q_positions=q_positions, kv_len=kv_len)
+    if cache is not None:
+        kv_positions = torch.arange(k.shape[1], device=x.device)
+    out = flash_attention(q, k, v, q_positions=q_positions,
+                          kv_positions=kv_positions, causal=causal,
+                          window=window, window_active=window_active,
+                          kv_len=kv_len, softcap=softcap, block=block)
     return dense(p["wo"], out.reshape(B, S, n_heads * head_dim)), cache
 
 

@@ -1,15 +1,21 @@
-"""Model assembly for the dense, MoE, RWKV-6, Mamba2 and Mamba2-hybrid
-families (the counterpart of the reference's ``models/model.py``).
+"""Model assembly for every family of the catalog: dense (gemma2's
+local/global alternation and softcaps included), MoE, RWKV-6, Mamba2,
+Mamba2-hybrid, encoder-decoder and VLM (the counterpart of the
+reference's ``models/model.py``).
 
 Parameters keep the reference's pytree layout, with the layer stack on
-axis 0 of every ``params["layers"]`` leaf; the stack runs as a Python
-loop over the layers.  An MoE layer is a dense layer whose MLP is the
-mixture of experts (``moe.py``).  The hybrid (zamba2) applies one
-weight-shared attention+MLP block after every ``attn_every`` Mamba2
-layers, with a KV cache per application.  Entry points are functions of
-(params, batch[, cache]) as in the reference.  The encoder-decoder and
-VLM families, sliding windows and softcaps are not ported yet and raise
-here.
+axis 0 of every ``params["layers"]`` (and ``params["encoder"]``) leaf;
+the stack runs as a Python loop over the layers.  An MoE layer is a
+dense layer whose MLP is the mixture of experts (``moe.py``).  The
+hybrid (zamba2) applies one weight-shared attention+MLP block after
+every ``attn_every`` Mamba2 layers, with a KV cache per application.
+The VLM is the dense stack over a prefix of patch embeddings in front of
+the prompt; the encoder-decoder encodes frame embeddings (non-causal
+self-attention) and decodes with causal self-attention, then
+cross-attention to the encoder's output, then the MLP.  The frontends
+are stubs, as in the reference: the caller supplies the patches or
+frames.  Entry points are functions of (params, batch[, cache]) as in
+the reference.
 """
 from __future__ import annotations
 
@@ -33,8 +39,12 @@ from . import ssm as SSM
 _ATTN = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"))
 _ATTN_MLP = _ATTN + (("mlp", "wg"), ("mlp", "wu"), ("mlp", "wd"))
 _SSM = (("layers", "ssm", "in_proj"), ("layers", "ssm", "out_proj"))
+_XATTN = tuple(("xattn",) + w[1:] for w in _ATTN)
 PROJECTIONS = {
     "dense": tuple(("layers",) + w for w in _ATTN_MLP),
+    "vlm": tuple(("layers",) + w for w in _ATTN_MLP),
+    "encdec": tuple(("encoder",) + w for w in _ATTN_MLP)
+    + tuple(("layers",) + w for w in _ATTN_MLP + _XATTN),
     "moe": tuple(("layers",) + w for w in _ATTN),
     "rwkv": tuple(("layers", "time", w)
                   for w in ("wr", "wk", "wv", "wg", "ww", "wo"))
@@ -62,17 +72,8 @@ class Model:
     cfg: ArchConfig
 
     def __post_init__(self):
-        cfg = self.cfg
-        if cfg.family not in PROJECTIONS:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-                f"(the port serves {', '.join(PROJECTIONS)}; encdec and "
-                f"vlm are not ported yet)")
-        if cfg.window or cfg.alt_local_global or cfg.attn_softcap or \
-                cfg.logit_softcap:
-            raise NotImplementedError(
-                f"{cfg.name}: sliding windows and softcaps are not ported "
-                f"yet")
+        if self.cfg.family not in PROJECTIONS:
+            raise ValueError(f"unknown family {self.cfg.family}")
 
     # ------------------------------------------------------------ init
     def init_params(self, generator: torch.Generator,
@@ -108,14 +109,18 @@ class Model:
                         "bias": full(shape, 0.0, pdt)}
             return {"scale": full(shape, 1.0, pdt)}
 
-        def attn_mlp(lead, moe=False):
+        def attn(lead):
             hq = cfg.n_heads * cfg.head_dim
             hkv = cfg.kv_heads * cfg.head_dim
-            lp = {"ln1": norm(lead + (d,)),
-                  "attn": {"wq": proj(d, hq, lead), "wk": proj(d, hkv, lead),
-                           "wv": proj(d, hkv, lead),
-                           "wo": proj(hq, d, lead)},
+            return {"wq": proj(d, hq, lead), "wk": proj(d, hkv, lead),
+                    "wv": proj(d, hkv, lead), "wo": proj(hq, d, lead)}
+
+        def attn_mlp(lead, moe=False, cross=False):
+            lp = {"ln1": norm(lead + (d,)), "attn": attn(lead),
                   "ln2": norm(lead + (d,))}
+            if cross:
+                lp["lnx"] = norm(lead + (d,))
+                lp["xattn"] = attn(lead)
             if moe:
                 lp["moe"] = MOE.moe_init(normal, cfg, lead, cdt)
             else:
@@ -127,8 +132,12 @@ class Model:
         p = {"embed": {"e": normal((cfg.padded_vocab, d), 0.02, pdt)},
              "final_norm": norm((d,))}
         fam = cfg.family
-        if fam in ("dense", "moe"):
+        if fam in ("dense", "moe", "vlm"):
             p["layers"] = attn_mlp((n,), moe=fam == "moe")
+        elif fam == "encdec":
+            p["encoder"] = attn_mlp((cfg.encoder_layers,))
+            p["layers"] = attn_mlp((n,), cross=True)
+            p["enc_norm"] = norm((d,))
         elif fam == "rwkv":
             nh, hd = RW.rwkv_dims(cfg)
             p["layers"] = {
@@ -162,9 +171,19 @@ class Model:
         return p
 
     # ----------------------------------------------------------- embed
-    def _embed_in(self, params, tokens):
+    def _embed_in(self, params, tokens, prefix=None):
+        """Token embeddings (gemma2's scaled by sqrt(d_model) in the
+        embedding's dtype), behind the frontend's ``prefix`` (B, P, d)
+        when one is given, in the compute dtype."""
+        cfg = self.cfg
         x = L.embed(params["embed"], tokens)
-        return x.to(L.dtype_of(self.cfg.compute_dtype))
+        if cfg.name.startswith("gemma2"):
+            # the scale rounded to the embedding's dtype, as the reference
+            # takes it
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
+        if prefix is not None:
+            x = torch.cat([prefix.to(x.dtype), x], dim=1)
+        return x.to(L.dtype_of(cfg.compute_dtype))
 
     def _lm_logits(self, params, x):
         cfg = self.cfg
@@ -176,6 +195,9 @@ class Model:
             logits = x.to(ldt) @ w.to(ldt)
         else:
             logits = x.to(torch.float32) @ w.to(torch.float32)
+        if cfg.logit_softcap:
+            logits = cfg.logit_softcap * torch.tanh(
+                logits / cfg.logit_softcap)
         if cfg.padded_vocab != cfg.vocab:
             # mask the pad rows out of the softmax
             pad = torch.arange(cfg.padded_vocab, device=logits.device)
@@ -183,17 +205,23 @@ class Model:
         return logits
 
     # ------------------------------------------------------ layer stack
-    def _attn_block(self, lp, x, positions, *, cache=None, cache_index=None):
+    def _attn_block(self, lp, x, positions, *, window_flag=None,
+                    cache=None, cache_index=None):
         """Pre-norm attention and gated MLP (or mixture of experts) with
-        residuals: a dense or MoE layer, or the hybrid's shared block.
-        ``cache`` {"k", "v"} is updated in place.  The MoE layer's aux
-        loss is a training term; serving drops it."""
+        residuals: a dense, VLM or MoE layer, or the hybrid's shared
+        block.  The config's window applies unless ``window_flag`` is
+        False (a global layer of an alternating stack), and its attention
+        softcap to every layer.  ``cache`` {"k", "v"} is updated in
+        place.  The MoE layer's aux loss is a training term; serving
+        drops it."""
         cfg = self.cfg
         h, _ = L.attention_apply(
             lp["attn"], L.apply_norm(lp["ln1"], x, cfg.norm),
             n_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
             head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-            q_positions=positions, cache=cache, cache_index=cache_index)
+            q_positions=positions, causal=True, window=cfg.window,
+            window_active=window_flag, softcap=cfg.attn_softcap,
+            cache=cache, cache_index=cache_index)
         x = x + h
         y = L.apply_norm(lp["ln2"], x, cfg.norm)
         if "moe" in lp:
@@ -210,13 +238,16 @@ class Model:
         a zero state and shift and their caches are only written: a
         fresh cache's zeros are passed down as None, so the scans can
         take their kernels (B3, B4), as ``use_pallas_scan`` means."""
-        fam = self.cfg.family
-        if fam in ("dense", "moe"):
-            for i in range(self.cfg.layers):
+        cfg = self.cfg
+        fam = cfg.family
+        if fam in ("dense", "moe", "vlm"):
+            for i in range(cfg.layers):
                 cache = (None if caches is None
                          else {"k": caches["k"][i], "v": caches["v"][i]})
+                # gemma2's alternation: even layers local, odd global
+                wf = (i % 2 == 0) if cfg.alt_local_global else None
                 x = self._attn_block(index_tree(params["layers"], i), x,
-                                     positions, cache=cache,
+                                     positions, window_flag=wf, cache=cache,
                                      cache_index=cache_index)
             return x
         if fam == "rwkv":
@@ -274,15 +305,78 @@ class Model:
                                      cache_index=cache_index)
         return x
 
+    # --------------------------------------------------- encoder-decoder
+    def _encode(self, params, enc_embeds):
+        """The encoder over frame embeddings (B, F, d): non-causal
+        self-attention, then the MLP (unfused, as the reference calls
+        it), then the encoder's norm."""
+        cfg = self.cfg
+        pos = torch.arange(enc_embeds.shape[1], device=enc_embeds.device)
+        x = enc_embeds
+        for i in range(cfg.encoder_layers):
+            lp = index_tree(params["encoder"], i)
+            h, _ = L.attention_apply(
+                lp["attn"], L.apply_norm(lp["ln1"], x, cfg.norm),
+                n_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
+                head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+                q_positions=pos, causal=False)
+            x = x + h
+            x = x + L.mlp_apply(lp["mlp"], L.apply_norm(lp["ln2"], x,
+                                                        cfg.norm))
+        return L.apply_norm(params["enc_norm"], x, cfg.norm)
+
+    def _decode_stack_encdec(self, params, x, enc_out, positions, *,
+                             caches=None, cache_index=None):
+        """The decoder: causal self-attention over its KV cache
+        (``caches["self"]``, updated in place), cross-attention to
+        ``enc_out`` (its keys and values projected again at every step,
+        as the reference does), then the MLP (unfused)."""
+        cfg = self.cfg
+        dims = dict(n_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
+                    head_dim=cfg.head_dim)
+        for i in range(cfg.layers):
+            lp = index_tree(params["layers"], i)
+            cache = (None if caches is None
+                     else {"k": caches["self"]["k"][i],
+                           "v": caches["self"]["v"][i]})
+            h, _ = L.attention_apply(
+                lp["attn"], L.apply_norm(lp["ln1"], x, cfg.norm), **dims,
+                rope_theta=cfg.rope_theta, q_positions=positions,
+                causal=True, cache=cache, cache_index=cache_index)
+            x = x + h
+            h, _ = L.attention_apply(
+                lp["xattn"], L.apply_norm(lp["lnx"], x, cfg.norm), **dims,
+                rope_theta=None, q_positions=positions, causal=False,
+                xkv=enc_out)
+            x = x + h
+            x = x + L.mlp_apply(lp["mlp"], L.apply_norm(lp["ln2"], x,
+                                                        cfg.norm))
+        return x
+
     # --------------------------------------------------------- serving
     def prefill(self, params, batch, max_len: int):
-        """Returns (last-token logits (B, 1, V), cache)."""
+        """Returns (last-token logits (B, 1, V), cache).  ``batch`` holds
+        ``tokens`` (B, S) and, for the frontends' families, ``frames``
+        (B, F, d: the encoder's input; the cache then carries its output
+        as ``enc_out``) or ``patches`` (B, P, d: a prefix in front of the
+        prompt, whose positions come first in the cache)."""
+        cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
         caches = self.init_cache(B, max_len, device=tokens.device)
-        x = self._embed_in(params, tokens)
-        pos = torch.arange(S, device=tokens.device)
-        x = self._forward_stack(params, x, pos, caches=caches["layers"])
+        if cfg.family == "encdec":
+            enc = self._encode(params, batch["frames"].to(
+                L.dtype_of(cfg.compute_dtype)))
+            x = self._embed_in(params, tokens)
+            pos = torch.arange(S, device=tokens.device)
+            x = self._decode_stack_encdec(params, x, enc, pos,
+                                          caches=caches["layers"])
+            caches["enc_out"] = enc
+        else:
+            prefix = batch.get("patches") if cfg.family == "vlm" else None
+            x = self._embed_in(params, tokens, prefix)
+            pos = torch.arange(x.shape[1], device=tokens.device)
+            x = self._forward_stack(params, x, pos, caches=caches["layers"])
         return self._lm_logits(params, x[:, -1:]), caches
 
     def decode_step(self, params, cache, tokens, index: int | torch.Tensor):
@@ -293,12 +387,13 @@ class Model:
         (the continuous scheduler's slot-indexed decode; each row is
         masked at its own valid length, and the step reads nothing of it
         back to the host).  The recurrent families take S == 1 and one
-        shared position, as in the reference.
+        shared position, as in the reference.  The encoder-decoder reads
+        its encoder's output from ``cache["enc_out"]``.
         Returns (logits (B, S, V), cache), the cache updated in place."""
         B, S = tokens.shape
         offs = torch.arange(S, device=tokens.device)
         if isinstance(index, torch.Tensor):
-            if self.cfg.family not in ("dense", "moe"):
+            if self.cfg.family not in ("dense", "moe", "vlm", "encdec"):
                 raise ValueError(
                     f"{self.cfg.name}: per-row positions need a pure KV "
                     f"cache; the {self.cfg.family!r} family carries "
@@ -310,8 +405,13 @@ class Model:
             index = int(index)
             pos = (index + offs)[None].expand(B, S)
         x = self._embed_in(params, tokens)
-        x = self._forward_stack(params, x, pos, caches=cache["layers"],
-                                cache_index=index)
+        if self.cfg.family == "encdec":
+            x = self._decode_stack_encdec(params, x, cache["enc_out"], pos,
+                                          caches=cache["layers"],
+                                          cache_index=index)
+        else:
+            x = self._forward_stack(params, x, pos, caches=cache["layers"],
+                                    cache_index=index)
         return self._lm_logits(params, x), cache
 
     def init_cache(self, batch: int, max_len: int,
@@ -319,8 +419,9 @@ class Model:
         """Zeroed caches in the reference's layout: KV caches stacked on
         the layer axis (dense) or on the group axis (the hybrid's shared
         block); RWKV state and shift carries on the layer axis; Mamba2
-        states and conv carries on (group, layer in group).  The MoE
-        family's cache is the dense one."""
+        states and conv carries on (group, layer in group).  The MoE and
+        VLM families' cache is the dense one; the encoder-decoder's is
+        the decoder's self-attention cache, {"self": {"k", "v"}}."""
         cfg = self.cfg
         dt = L.dtype_of(cfg.compute_dtype)
         f32 = torch.float32
@@ -333,8 +434,10 @@ class Model:
             shape = (n_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
             return {"k": zeros(shape), "v": zeros(shape)}
 
-        if cfg.family in ("dense", "moe"):
+        if cfg.family in ("dense", "moe", "vlm"):
             return {"layers": kv(n)}
+        if cfg.family == "encdec":
+            return {"layers": {"self": kv(n)}}
         if cfg.family == "rwkv":
             nh, hd = RW.rwkv_dims(cfg)
             return {"layers": {

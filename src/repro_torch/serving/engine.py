@@ -361,19 +361,32 @@ class Engine:
 
     @torch.inference_mode()
     def generate(self, tokens: np.ndarray, *,
+                 extra_batch: dict | None = None,
                  rng: torch.Generator | None = None) -> np.ndarray:
         """tokens: (B, S) prompt batch; returns (B, new) int32.
 
-        Rows that hit the stop token are padded with it; columns after
-        the early exit are 0.  With temperature > 0 each step draws fresh
-        Gumbel noise from ``rng`` (a torch.Generator on the engine's
-        device)."""
+        ``extra_batch`` goes into the prefill's batch with the tokens:
+        ``frames`` (B, F, d) for the encoder-decoder, ``patches`` (B, P, d)
+        for the VLM, whose P prefix positions come before the prompt's in
+        the cache (and enter the capacity check and every decode
+        position).  Rows that hit the stop token are padded with it;
+        columns after the early exit are 0.  With temperature > 0 each
+        step draws fresh Gumbel noise from ``rng`` (a torch.Generator on
+        the engine's device)."""
         cfg = self.cfg
         B, S = tokens.shape
-        self.validate_capacity(S, cfg.max_new_tokens)
-        toks = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
-                               device=self.device)
-        logits, cache = self.model.prefill(self.params, {"tokens": toks},
+        prefix = 0
+        for k in ("patches", "frames"):
+            if extra_batch and k in extra_batch and \
+                    self.model.cfg.family == "vlm":
+                prefix = extra_batch[k].shape[1]
+        self.validate_capacity(S, cfg.max_new_tokens, prefix_len=prefix)
+        batch = {"tokens": torch.as_tensor(np.asarray(tokens),
+                                           dtype=torch.int64,
+                                           device=self.device)}
+        for k, v in (extra_batch or {}).items():
+            batch[k] = torch.as_tensor(v, device=self.device)
+        logits, cache = self.model.prefill(self.params, batch,
                                            max_len=cfg.cache_len)
         out = torch.zeros((B, cfg.max_new_tokens), dtype=torch.int32,
                           device=self.device)
@@ -392,7 +405,8 @@ class Engine:
             if t + 1 == cfg.max_new_tokens:
                 break               # the next step's token would be unused
             logits, cache = self.model.decode_step(
-                self.params, cache, cur[:, None].to(torch.int64), S + t)
+                self.params, cache, cur[:, None].to(torch.int64),
+                prefix + S + t)
             cur = self.sample(logits[:, -1], rng)
         return out.cpu().numpy()
 
