@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--out DIR]
+    python3 chip_smoke.py --time-generate
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 checks that the bf16 GEMM kernels and the scans run on the tensor cores
@@ -53,7 +54,16 @@ one's launch counts:
   ``goma_combine`` with exact counts at phase-3 shapes, 0 solver calls;
   llava-next-34b statically behind 2880 patches (B1, ``goma_combine``);
   seamless-m4t-medium statically (no GOMA kernel); the fp32 gates at 4
-  layers.
+  layers;
+- tensor-parallel serving (phase 18) over 2 and 4 ranks that share the
+  card over gloo: the ``llama3-8b`` (B2 at the local d_ff) and
+  ``deepseek-moe-16b`` smoke configs card == CPU == one rank, and
+  ``llama3-8b`` at full width from a plan store rank 0 prewarmed (0
+  solver calls; on every rank B1 and ``goma_combine`` with exact counts
+  at the per-rank shapes phase 3 holds, and exactly 2 all-reduces a
+  layer and 2 for the split vocabulary a pass), tokens/s, peak memory per
+  rank and the time of one all-reduce, and the fp32 gate at 4 layers
+  against one rank.
 
 Imports nothing of JAX and nothing of the reference package.
 
@@ -71,6 +81,11 @@ to ``DIR/profile_sched.{json,txt}``; phase 13's profiled MoE replay
 profiled generates to ``DIR/profile_serve_<arch>.{json,txt}``.  Any
 failed phase raises and ends the script with a non-zero code; without a
 CUDA card it prints no result.
+
+``--time-generate`` runs nothing but phase 5's static generate, timed
+five times, and prints the readings; a copy of the script at the root of
+another checkout times that checkout's port (two commits compared in
+one session, in turns).
 """
 from __future__ import annotations
 
@@ -79,7 +94,9 @@ import atexit
 import contextlib
 import dataclasses
 import gc
+import itertools
 import json
+import math
 import os
 import pathlib
 import re
@@ -109,6 +126,10 @@ FUSED_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 ODD_SHAPES = [(300, 200, 100), (129, 257, 65), (100, 50, 1)]
 # every path serves batch 4 and 8 new tokens
 FULL = dict(arch="llama3-8b", batch=4, prompt_len=16, new_tokens=8)
+# phase 5 times this many generates after its checked one (and
+# --time-generate as many): one reading of 0.5-0.8 s moves with the
+# load of the host's shared cores
+PHASE5_TIMED_RUNS = 5
 # the recurrent paths' prompts: 200 is two chunks of 128 at full width,
 # the second one padded; 12 is two chunks of the smoke configs' 8
 RECURRENT = dict(prompt_len=200, smoke_prompt_len=12)
@@ -248,6 +269,22 @@ SERVED_MLPS.update({
         GEMMA2_FULL["batch"] * GEMMA2_FULL["prompt_len"]})), 36864, 4608),
     "llava-next-34b": ((LLAVA_FULL["batch"], LLAVA_FULL["batch"]
                         * (2880 + LLAVA_FULL["prompt_len"])), 20480, 7168)})
+# tensor-parallel serving (phase 18): the ranks share the one card and
+# run gloo (NCCL refuses two ranks on one card), every rank on the model
+# axis.  The smoke configs (llama3-8b's fused MLP, B2 at the local d_ff,
+# and deepseek-moe-16b's experts) at phase 4's batch and prompt; llama3-8b
+# at its published widths at phase 5's, its MLPs (three B1 launches and a
+# goma_combine) at the local d_ff; the fp32 gate at this depth
+TP_SERVE = dict(worlds=(2, 4), smoke=(("llama3-8b", {"fused_mlp": True}),
+                                     ("deepseek-moe-16b", {})),
+                gate_layers=4)
+SERVED_MLPS.update({
+    f"llama3-8b TP{n}": ((FULL["batch"], FULL["batch"] * FULL["prompt_len"]),
+                         14336 // n, 4096) for n in TP_SERVE["worlds"]})
+# the smoke chain's rows (decode, prefill) and local d_ff at each TP
+TP_SMOKE_CHAINS = tuple((M, 128 // n) for n in TP_SERVE["worlds"]
+                        for M in (FULL["batch"],
+                                  FULL["batch"] * FULL["prompt_len"]))
 
 
 @contextlib.contextmanager
@@ -370,6 +407,17 @@ def mma_counts(lib_dir: pathlib.Path) -> dict | None:
 
 
 # --------------------------------------------------------------- phase 3
+def cold_copies(t: torch.Tensor) -> list[torch.Tensor]:
+    """``t`` and as many copies of it as make the list span at least
+    twice the card's L2 cache.  A timing loop that cycles through them
+    reads each from memory, as the served path reads every layer's
+    weight; one weight called again stays in L2 where it fits."""
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                 50 * 2**20)
+    return [t] + [t.clone() for _ in range(
+        max(0, math.ceil(2 * l2 / t.nbytes) - 1))]
+
+
 def b1_operands(plan, dtype, gen):
     """Padded B1 operands for a plan: A's rows from plan.M on and the
     padding of both are zero, as every caller pads."""
@@ -388,7 +436,8 @@ def check_b1(shape, dtype, gen, *, timed: bool) -> dict:
     a shape is planned in the process), with its CTA decomposition; with
     ``timed``, also kernel, plain
     and torch.matmul times (events, and device time by the profiler), the
-    kernel's device time at every slice width, and its shares."""
+    kernel's device time at every slice width, and its shares; each timed
+    call takes the next of B's cold_copies (``weight_copies``)."""
     from repro_torch.core.hopper_mapping import plan_gemm_tiling
     from repro_torch.kernels import _build
     from repro_torch.kernels.goma_gemm import (SLICE_WIDTHS, cta_slices,
@@ -419,12 +468,15 @@ def check_b1(shape, dtype, gen, *, timed: bool) -> dict:
         # the work the product needs: the unpadded operands and flops
         nbytes = (M * K + K * N + M * N) * dtype.itemsize
         bound, by = bound_ms(nbytes, 2 * M * N * K, dtype)
+        bs = cold_copies(b)
+        w = itertools.cycle(bs).__next__
         row.update(
-            ms=time_ms(lambda: goma_matmul(a, b, plan)),
-            device_ms=device_ms(lambda: goma_matmul(a, b, plan)),
-            plain_ms=time_ms(lambda: goma_matmul_plain(a, b, plan)),
-            library_ms=time_ms(lambda: torch.matmul(a, b)),
-            library_device_ms=device_ms(lambda: torch.matmul(a, b)),
+            weight_copies=len(bs),
+            ms=time_ms(lambda: goma_matmul(a, w(), plan)),
+            device_ms=device_ms(lambda: goma_matmul(a, w(), plan)),
+            plain_ms=time_ms(lambda: goma_matmul_plain(a, w(), plan)),
+            library_ms=time_ms(lambda: torch.matmul(a, w())),
+            library_device_ms=device_ms(lambda: torch.matmul(a, w())),
             bound_ms=bound, bound_by=by)
         row.update(
             bound_share=bound / row["ms"],
@@ -432,8 +484,9 @@ def check_b1(shape, dtype, gen, *, timed: bool) -> dict:
             device_bound_share=bound / row["device_ms"],
             device_vs_library=row["device_ms"] / row["library_device_ms"],
             device_ms_by_slice={
-                w: device_ms(lambda: goma_matmul(a, b, plan, slice_n=w))
-                for w in SLICE_WIDTHS if plan.block[1] % w == 0})
+                n: device_ms(lambda: goma_matmul(a, w(), plan, slice_n=n))
+                for n in SLICE_WIDTHS if plan.block[1] % n == 0})
+        del bs
     return row
 
 
@@ -1042,11 +1095,12 @@ def make_full(arch: str, **knobs):
 
 def static_full(cfg, model, params, run: dict, checked: set, smi: str,
                 out: pathlib.Path | None,
-                profile_name: str | None = None) -> dict:
+                profile_name: str | None = None, timed_runs: int = 1) -> dict:
     """One static generate at full width (``run``: batch, prompt_len,
     new_tokens; the frontend's inputs from the seed), with exact launch
     counts (expected_launches), every launch at a shape phase 3 held and
-    finite logits; then a second one, timed, with equal tokens.  With
+    finite logits; then ``timed_runs`` more, each timed and with equal
+    tokens (tokens/s from their median, every reading kept).  With
     ``out``, one more generate runs under the profiler
     (``out/<profile_name>.{json,txt}``, by default
     ``profile_serve_<arch>``)."""
@@ -1082,14 +1136,18 @@ def static_full(cfg, model, params, run: dict, checked: set, smi: str,
         raise AssertionError(f"{cfg.name} launches {counts} != {want} "
                              f"({passes} forward passes)")
     shapes = held_shapes(seen, counts, checked)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    again = eng.generate(prompts, extra_batch=extra)
-    dt = time.perf_counter() - t0
-    if not np.array_equal(again, tokens):
-        raise AssertionError("a second greedy run gave other tokens")
+    runs = []
+    for _ in range(timed_runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = eng.generate(prompts, extra_batch=extra)
+        runs.append(time.perf_counter() - t0)
+        if not np.array_equal(again, tokens):
+            raise AssertionError("a second greedy run gave other tokens")
+    dt = statistics.median(runs)
     peak = torch.cuda.max_memory_allocated() / 2**30
     serve = {"tokens_per_s": B * new / dt, "seconds": dt,
+             "tokens_per_s_runs": [B * new / t for t in runs],
              "first_run_seconds": first_s, "first_run_solver_calls": solves,
              "forward_passes": passes, "peak_memory_gib": peak,
              "cache_len": eng.cfg.cache_len}
@@ -1098,27 +1156,28 @@ def static_full(cfg, model, params, run: dict, checked: set, smi: str,
           f"{tokens.tolist()}")
     print(f"  forward passes {passes}, launches {counts}")
     print(f"  launches by shape (each held in phase 3): {seen}")
-    print(f"  {B * new / dt} tokens/s ({dt} s for {B}x{new} tokens; first "
-          f"run {first_s} s with {solves} solver calls), peak memory "
-          f"{peak} GiB")
+    print(f"  {B * new / dt} tokens/s ({dt} s for {B}x{new} tokens, the "
+          f"median of {timed_runs} timed runs: "
+          f"{serve['tokens_per_s_runs']} tokens/s; first run {first_s} s "
+          f"with {solves} solver calls), peak memory {peak} GiB")
     if out is not None:
         serve["profile"] = profile_run(
             lambda: eng.generate(prompts, extra_batch=extra), smi, out,
             profile_name or f"profile_serve_{cfg.name}")
     return {"launches": counts, "shapes": shapes, "serve": serve,
-            "prompts": prompts, "extra": extra}
+            "prompts": prompts, "extra": extra, "tokens": tokens}
 
 
 def serve_full(arch: str, prompt_len: int, smi: str,
                out: pathlib.Path | None, profile_name: str, checked: set,
-               *, check_paths: bool, **knobs) -> dict:
+               *, check_paths: bool, timed_runs: int = 1, **knobs) -> dict:
     """``arch`` at its published widths, bf16, random weights made on the
     card, with the config ``knobs`` set.  With ``check_paths`` the first
     prefill's logits are held against the plain path's on the card
     (prefill_paths).  Then FULL's static generate (static_full): exact
     launch counts, every kernel launched at a shape and dtype phase 3
-    held, finite logits, and a second run, timed; with ``out``, one more
-    under the profiler."""
+    held, finite logits, and ``timed_runs`` more, timed; with ``out``,
+    one more under the profiler."""
     cfg, model, params = make_full(arch, **knobs)
     paths = None
     if check_paths:
@@ -1133,7 +1192,7 @@ def serve_full(arch: str, prompt_len: int, smi: str,
     run = static_full(cfg, model, params,
                       dict(batch=FULL["batch"], prompt_len=prompt_len,
                            new_tokens=FULL["new_tokens"]),
-                      checked, smi, out, profile_name)
+                      checked, smi, out, profile_name, timed_runs)
     if paths is not None:
         run["serve"]["prefill_vs_plain_path"] = paths
     return run
@@ -2933,6 +2992,293 @@ def seamless_full(checked: set, smi: str,
     return {"launches": static["launches"], "serve": static["serve"]}
 
 
+# ------------------------------------------------------------- phase 18
+def tp_smoke_setup(arch: str, knobs: dict):
+    """A smoke config as serve_smoke serves it: (model, weights made on
+    the CPU from the seed, prompts, serving config)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeConfig
+    model = build_model(dataclasses.replace(get_config(arch, smoke=True),
+                                            **knobs))
+    params = model.init_params(torch.Generator().manual_seed(SEED), "cpu")
+    prompts = np.random.default_rng(SEED).integers(
+        0, model.cfg.vocab, (FULL["batch"], FULL["prompt_len"])).astype(
+        np.int32)
+    return model, params, prompts, ServeConfig(
+        max_new_tokens=FULL["new_tokens"], cache_len=32)
+
+
+def tp_smoke_rank(world: int, arch: str, knobs: dict, checked: set) -> dict:
+    """One rank of a smoke config sharded over ``world`` ranks: greedy
+    tokens with the ranks on the CPU (gloo over CPU tensors) and on the
+    card (gloo over CUDA tensors), every kernel launch on the card at a
+    shape phase 3 held (B2 at the local d_ff)."""
+    from repro_torch.dist.serve import shard_engine
+    from repro_torch.models.model import tree_to
+    from repro_torch.serving import Engine
+    model, params, prompts, scfg = tp_smoke_setup(arch, knobs)
+    cpu = Engine(model, params, scfg)
+    shard_engine(cpu, model_axis=world)
+    cpu_tokens = cpu.generate(prompts)
+    card = Engine(model, tree_to(params, "cuda"), scfg)
+    shard_engine(card, model_axis=world)
+    reset_launches()
+    seen = {}
+    with recording_shapes(seen):
+        card_tokens = card.generate(prompts)
+    launches = launch_counts()
+    shapes = held_shapes(seen, launches, checked)
+    if model.cfg.fused_mlp and launches["goma_fused_matmul"] <= 0:
+        raise AssertionError(f"the {arch} smoke run on {world} ranks never "
+                             f"launched B2: {launches}")
+    return {"cpu": cpu_tokens, "card": card_tokens, "launches": launches,
+            "shapes": shapes, "all_reduces": card.model.tp.all_reduces}
+
+
+def all_reduce_ms(group, shape, dtype, reps: int = 20) -> float:
+    """Median wall time of one gloo all_reduce of a CUDA tensor of
+    ``shape`` over ``group``, from a synchronised card to a synchronised
+    card (host-staged: the copies to and from the host included)."""
+    import torch.distributed as dist
+    x = torch.zeros(shape, dtype=dtype, device="cuda")
+    dist.all_reduce(x, group=group)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(x, group=group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def full_prompts(cfg) -> np.ndarray:
+    """Phase 5's prompts."""
+    return np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (FULL["batch"], FULL["prompt_len"])).astype(np.int32)
+
+
+def tp_full_rank(world: int, checked: set, store_dir: str) -> dict:
+    """One rank of llama3-8b at its published widths, bf16, fused MLP
+    on, split over ``world`` ranks: the rank's slices made on the card
+    leaf by leaf from phase 5's seed, the plan store prewarmed from the
+    rank's own captured programs (rank 0 first, the others then read
+    it), then phase 5's static generate: 0 solver calls, exact launches
+    (three B1 and a goma_combine a layer a pass) at shapes phase 3 held,
+    2 all_reduces a layer and 2 for the split vocabulary a pass, one
+    token check a step; a second, timed generate with equal tokens, and
+    the host time this rank spent inside its all_reduce calls in it
+    (gloo stages a CUDA tensor through the host and returns after the
+    host-side sum, with the copy back queued: the time includes waiting
+    for the device work queued before the call and for the other
+    ranks); the time of one all_reduce at the pass's shapes, alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.solver import reset_solver_stats, solver_stats
+    from repro_torch.dist.serve import shard_model
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.planner.store import PlanStore
+    from repro_torch.serving import Engine, ServeConfig
+    mesh = make_host_mesh(model=world)
+    cfg = dataclasses.replace(get_config(FULL["arch"]), fused_mlp=True)
+    model = shard_model(build_model(cfg), mesh)
+    tp = model.tp
+    B, S, new = FULL["batch"], FULL["prompt_len"], FULL["new_tokens"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    torch.cuda.synchronize()
+    made = {"seconds": time.perf_counter() - t0,
+            "weights_gib": torch.cuda.memory_allocated() / 2**30,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    prompts = full_prompts(cfg)
+    eng = Engine(model, params, ServeConfig(max_new_tokens=new,
+                                            cache_len=S + new + 8),
+                 plan_store=PlanStore(store_dir))
+    reset_solver_stats()
+    t0 = time.perf_counter()
+    planned = eng.prewarm_plans(FULL["arch"], B, S)
+    prewarm = {"seconds": time.perf_counter() - t0, "tilings": planned,
+               "solver_calls": solver_stats()["calls"]}
+    finite = watch_logits(model)
+    reset_solver_stats()
+    reset_launches()
+    tp.all_reduces = tp.token_checks = 0
+    seen = {}
+    t0 = time.perf_counter()
+    with recording_shapes(seen):
+        tokens = eng.generate(prompts)
+    first_s = time.perf_counter() - t0
+    counts, solves, passes = launch_counts(), solver_stats()["calls"], \
+        len(finite)
+    reduces, checks = tp.all_reduces, tp.token_checks
+    del model._lm_logits
+    if not all(bool(f) for f in finite):
+        raise AssertionError("non-finite logits on a tensor-parallel rank")
+    want = expected_launches(cfg, passes)
+    per_pass = 2 * cfg.layers + 2
+    if (solves or counts != want or reduces != per_pass * passes
+            or checks != new):
+        raise AssertionError(
+            f"rank {mesh.rank} of {world}: {solves} solver calls, launches "
+            f"{counts} (want {want}), {reduces} all_reduces (want "
+            f"{per_pass} x {passes}), {checks} token checks (want {new})")
+    shapes = held_shapes(seen, counts, checked)
+    inside, reduce = [], tp.all_reduce
+
+    def timed_reduce(x):
+        t = time.perf_counter()
+        y = reduce(x)
+        inside.append(time.perf_counter() - t)
+        return y
+
+    tp.all_reduce = timed_reduce
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = eng.generate(prompts)
+    dt = time.perf_counter() - t0
+    del tp.all_reduce
+    if not np.array_equal(again, tokens):
+        raise AssertionError("a second greedy run gave other tokens")
+    group, d, V = tp.group, cfg.d_model, cfg.padded_vocab
+    reduce_ms = {
+        f"{what} ({' x '.join(map(str, shape))} {dtype_name(dtype)})":
+            all_reduce_ms(group, shape, dtype)
+        for what, shape, dtype in (
+            ("layer, decode", (B, 1, d), torch.bfloat16),
+            ("layer, prefill", (B, S, d), torch.bfloat16),
+            ("embedding, decode", (B, 1, d), torch.float32),
+            ("logits, decode", (B, 1, V), torch.float32))}
+    return {"tokens": tokens, "launches": counts, "shapes": shapes,
+            "serve": {"tokens_per_s": B * new / dt, "seconds": dt,
+                      "all_reduce_seconds_in_generate": sum(inside),
+                      "all_reduce_share_of_generate": sum(inside) / dt,
+                      "first_run_seconds": first_s, "forward_passes": passes,
+                      "all_reduces_per_pass": reduces / passes,
+                      "token_checks": checks, "solver_calls": solves,
+                      "made": made, "prewarm": prewarm,
+                      "peak_memory_gib":
+                          torch.cuda.max_memory_allocated() / 2**30,
+                      "all_reduce_ms": reduce_ms}}
+
+
+def tp_gate_logits(mesh=None) -> torch.Tensor:
+    """The first prefill's logits of llama3-8b at TP_SERVE's gate depth,
+    full width, fp32, fused MLP on, weights from the seed (on ``mesh``,
+    this rank's slices of the same weights), on the host."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.serve import shard_model
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(FULL["arch"]), fused_mlp=True,
+                              layers=TP_SERVE["gate_layers"],
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    if mesh is not None:
+        model = shard_model(model, mesh)
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    toks = torch.as_tensor(full_prompts(cfg), dtype=torch.int64,
+                           device="cuda")
+    with torch.inference_mode():
+        logits = model.prefill(params, {"tokens": toks},
+                               max_len=FULL["prompt_len"])[0]
+    return logits.cpu()
+
+
+def tp_rank(rank: int, world: int, checked: set, store_dir: str) -> dict:
+    """Everything phase 18 runs on one rank of ``world``."""
+    from repro_torch.launch.mesh import make_host_mesh
+    out = {"smoke": {arch: tp_smoke_rank(world, arch, knobs, checked)
+                     for arch, knobs in TP_SERVE["smoke"]}}
+    out["full"] = tp_full_rank(world, checked, store_dir)
+    free_device()
+    out["gate"] = tp_gate_logits(make_host_mesh(model=world))
+    return out
+
+
+def tp_serve(checked: set, store_root: pathlib.Path, phase5: dict) -> dict:
+    """Phase 18: for each world of TP_SERVE, its ranks spawned over gloo on
+    the one card (the kernels built by phase 2, so no rank builds them).
+    The smoke configs' tokens card == CPU == the single-rank oracle on
+    every rank; llama3-8b at full width (tp_full_rank) with every rank's
+    gates; the fp32 gate's logits within PATH_TOL of scale of the single
+    rank's.  Reported: tokens/s (TP 1 is phase 5's), peak memory per
+    rank, time per all_reduce, and the bf16 streams against phase 5's."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.serving import Engine
+    oracle = {}
+    for arch, knobs in TP_SERVE["smoke"]:
+        model, params, prompts, scfg = tp_smoke_setup(arch, knobs)
+        oracle[arch] = Engine(model, params, scfg).generate(prompts)
+    want = tp_gate_logits()
+    free_device()
+    report, runs, shapes = {}, {}, {}
+    for world in TP_SERVE["worlds"]:
+        t0 = time.perf_counter()
+        ranks = run_ranks(tp_rank, world, world, checked,
+                          str(store_root / f"tp{world}"), timeout_s=300)
+        seconds = time.perf_counter() - t0
+        gate = []
+        for r, got in enumerate(ranks):
+            for arch, want_tokens in oracle.items():
+                run = got["smoke"][arch]
+                if not (np.array_equal(run["card"], want_tokens)
+                        and np.array_equal(run["cpu"], want_tokens)):
+                    raise AssertionError(
+                        f"{arch} smoke on rank {r} of {world}: card "
+                        f"{run['card'].tolist()}, cpu {run['cpu'].tolist()}, "
+                        f"single rank {want_tokens.tolist()}")
+            if not np.array_equal(got["full"]["tokens"],
+                                  ranks[0]["full"]["tokens"]):
+                raise AssertionError(f"rank {r} of {world} served other "
+                                     f"tokens than rank 0")
+            gate.append(close_to_scale(got["gate"], want, PATH_TOL))
+        full = ranks[0]["full"]
+        serve = dict(full["serve"], seconds_phase=seconds,
+                     gate_max_abs_err=gate,
+                     gate_scale=float(want.abs().max()),
+                     peak_memory_gib_by_rank=[
+                         g["full"]["serve"]["peak_memory_gib"]
+                         for g in ranks],
+                     tokens_agree_with_single_rank=float(
+                         (full["tokens"] == phase5["tokens"]).mean()))
+        report[world] = serve
+        for arch in oracle:
+            runs[f"TP{world} {arch} smoke (rank 0)"] = \
+                ranks[0]["smoke"][arch]["launches"]
+            shapes[f"TP{world} {arch} smoke (rank 0)"] = \
+                ranks[0]["smoke"][arch]["shapes"]
+        runs[f"TP{world} llama3-8b full width (rank 0)"] = full["launches"]
+        shapes[f"TP{world} llama3-8b full width (rank 0)"] = full["shapes"]
+        print(f"  TP {world}: smoke tokens card == cpu == single rank "
+              f"({', '.join(oracle)}); smoke all_reduces "
+              f"{ {a: ranks[0]['smoke'][a]['all_reduces'] for a in oracle} }")
+        print(f"  TP {world}: llama3-8b full width, tokens "
+              f"{full['tokens'].tolist()} ({serve['tokens_agree_with_single_rank']} "
+              f"equal to phase 5's)")
+        print(f"  TP {world}: {serve['tokens_per_s']} tokens/s (TP 1, phase "
+              f"5: {phase5['serve']['tokens_per_s']}); launches per rank "
+              f"{full['launches']}; {serve['all_reduces_per_pass']} "
+              f"all_reduces a pass, {serve['token_checks']} token checks")
+        print(f"  TP {world}: peak memory by rank "
+              f"{serve['peak_memory_gib_by_rank']} GiB; made "
+              f"{serve['made']}; prewarm {serve['prewarm']}")
+        print(f"  TP {world}: all_reduce ms (gloo over CUDA tensors, "
+              f"host-staged, ranks sharing one card), each alone: "
+              f"{serve['all_reduce_ms']}")
+        print(f"  TP {world}: host seconds inside all_reduce in the timed "
+              f"generate by rank (waits for queued device work and the "
+              f"other ranks included): "
+              f"{[g['full']['serve']['all_reduce_seconds_in_generate'] for g in ranks]}"
+              f" of {[g['full']['serve']['seconds'] for g in ranks]} s")
+        print(f"  TP {world}: fp32 gate at {TP_SERVE['gate_layers']} layers, "
+              f"max abs err by rank {gate} (scale {serve['gate_scale']}, "
+              f"tol {PATH_TOL} x scale); {seconds:.1f} s")
+    return {"serve": report, "launches": runs, "shapes": shapes}
+
+
 def profile_run(fn, smi: str, out: pathlib.Path | None, name: str, *,
                 host_ops: bool = True) -> dict:
     """One more run of fn (a generate, a scheduler replay) under
@@ -2984,14 +3330,59 @@ def profile_run(fn, smi: str, out: pathlib.Path | None, name: str, *,
     return summary
 
 
+def time_generate(reps: int, smi: str) -> None:
+    """Phase 5's static generate alone: llama3-8b at its published
+    widths, bf16, fused MLP, FULL's batch, prompt and new tokens, weights
+    from the seed; one generate first (its plans solved), then ``reps``
+    timed ones with equal tokens, each printed as tokens/s.  It calls
+    only entry points the port has had since its first slices, so a copy
+    of this script at the root of an older checkout times that
+    checkout's port: run the two alternately in one session to compare
+    two commits."""
+    from repro_torch.kernels import _build
+    from repro_torch.serving import Engine, ServeConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build()
+    _build.load()
+    cfg, model, params = make_full(FULL["arch"], fused_mlp=True)
+    B, S, new = FULL["batch"], FULL["prompt_len"], FULL["new_tokens"]
+    prompts = full_prompts(cfg)
+    eng = Engine(model, params, ServeConfig(max_new_tokens=new,
+                                            cache_len=S + new + 8))
+    first = eng.generate(prompts)
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens = eng.generate(prompts)
+        runs.append(time.perf_counter() - t0)
+        if not np.array_equal(tokens, first):
+            raise AssertionError("a timed generate gave other tokens")
+    tps = [B * new / t for t in runs]
+    print(smi)
+    print(json.dumps({"time_generate": {
+        "root": str(ROOT), "tokens_per_s": tps,
+        "median_tokens_per_s": statistics.median(tps)}}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
                     help="directory for chip_smoke.json (per-shape rows)")
+    ap.add_argument("--time-generate", action="store_true",
+                    help="only time phase 5's static generate "
+                         f"{PHASE5_TIMED_RUNS} times (time_generate)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on "
                  "the card")
+    if args.time_generate:
+        time_generate(PHASE5_TIMED_RUNS, subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0])
+        return
     out = pathlib.Path(args.out) if args.out else None
     if out is not None:
         out.mkdir(parents=True, exist_ok=True)
@@ -3078,6 +3469,9 @@ def main() -> None:
         b2_rows += [check_b2(M, 128, 64, torch.float32, gen, timed=False)
                     for M in sorted({*range(1, CAPTURE_FLEET_ROWS + 1),
                                      *CATALOG_SMOKE_ROWS} - held_b2)]
+        # ... and at phase 18's local d_ff
+        b2_rows += [check_b2(M, ff, 64, torch.float32, gen, timed=False)
+                    for M, ff in TP_SMOKE_CHAINS]
         # the composition's combine: an odd fp32 shape, and every served
         # MLP's strip at decode and in the prefill
         combine_rows.append(check_combine((129, 257), torch.float32, gen,
@@ -3125,7 +3519,7 @@ def main() -> None:
     with phase("5 serve llama3-8b at full width (B1)"):
         full = serve_full(FULL["arch"], FULL["prompt_len"], smi, out,
                           "profile_serve", checked, check_paths=False,
-                          fused_mlp=True)
+                          timed_runs=PHASE5_TIMED_RUNS, fused_mlp=True)
         runs["serve llama3-8b full width"] = full["launches"]
         shapes["serve llama3-8b full width"] = full["shapes"]
     free_device()
@@ -3246,6 +3640,13 @@ def main() -> None:
         print(f"  seamless-m4t-medium at full width: "
               f"{time.perf_counter() - t0:.1f} s")
     free_device()
+    with phase("18 tensor-parallel serving (B1 at the per-rank shapes): "
+               "llama3-8b and deepseek-moe-16b smoke and llama3-8b at full "
+               "width over 2 and 4 ranks (gloo on one card)"):
+        tp = tp_serve(checked, stores / "tp", full)
+        runs.update(tp["launches"])
+        shapes.update(tp["shapes"])
+    free_device()
 
     b1 = next(r for r in b1_rows if r["shape"] == [4, 14336, 4096])
     b2 = next(r for r in b2_rows if r["shape"] == [4, 128, 64])
@@ -3309,6 +3710,7 @@ def main() -> None:
              "catalog": {"gemma2-27b": gemma["serve"],
                          "llava-next-34b": llava["serve"],
                          "seamless-m4t-medium": seamless["serve"]},
+             "tensor_parallel": tp["serve"],
              "launches": runs,
              "shapes": shapes,
              "kernels": kernels,

@@ -189,6 +189,7 @@ def attention_apply(p: Params, x: torch.Tensor, *, n_heads: int,
                     cache: Params | None = None,
                     cache_index: int | torch.Tensor | None = None,
                     static_cache: bool = False,
+                    kv_range: tuple[int, int] | None = None,
                     block: int = 512):
     """Returns (out, cache).  ``xkv`` (B, T_src, d) switches to
     cross-attention: keys and values come from it, without rope, at
@@ -202,7 +203,10 @@ def attention_apply(p: Params, x: torch.Tensor, *, n_heads: int,
     precomputed cross-attention cache; the projections of ``xkv`` are
     not needed then and are not computed).  Unlike the reference, the
     cache is updated in place (no second copy of it per step); the
-    returned cache is the same dict."""
+    returned cache is the same dict.  ``kv_range`` (lo, hi): the queries
+    read only KV heads lo..hi-1 of those projected and cached (a
+    tensor-parallel rank's query heads, with the KV heads replicated).
+    """
     B, S, _ = x.shape
     src = x if xkv is None else xkv
     q = dense(p["wq"], x).reshape(B, S, n_heads, head_dim)
@@ -233,6 +237,9 @@ def attention_apply(p: Params, x: torch.Tensor, *, n_heads: int,
         kv_len = start + S
     if cache is not None:
         kv_positions = torch.arange(k.shape[1], device=x.device)
+    if kv_range is not None:
+        lo, hi = kv_range
+        k, v = k[:, :, lo:hi], v[:, :, lo:hi]
     out = flash_attention(q, k, v, q_positions=q_positions,
                           kv_positions=kv_positions, causal=causal,
                           window=window, window_active=window_active,

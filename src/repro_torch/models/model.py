@@ -25,10 +25,12 @@ import math
 import torch
 
 from ..configs.base import ArchConfig
+from ..sharding.rules import map_with_paths
 from . import layers as L
 from . import moe as MOE
 from . import rwkv as RW
 from . import ssm as SSM
+from .parallel import TensorParallel
 
 # the projection weights by family, as key paths from the root of the
 # parameter tree: the reference casts them to the compute dtype at every
@@ -70,6 +72,10 @@ def tree_to(params: dict, device) -> dict:
 @dataclasses.dataclass
 class Model:
     cfg: ArchConfig
+    # the tensor-parallel layout this model runs on (dist.serve's
+    # shard_model installs it); None on one device
+    tp: TensorParallel | None = dataclasses.field(default=None, repr=False,
+                                                  compare=False)
 
     def __post_init__(self):
         if self.cfg.family not in PROJECTIONS:
@@ -86,18 +92,31 @@ class Model:
         Mamba2 conv taps with std 1/sqrt(K), A_log 0, D 1, dt_bias 0.
         Projection weights, expert banks and shared experts are made in
         the compute dtype, the MoE router, the bonus, decay bias, A_log,
-        D and dt_bias in fp32, the rest in the parameter dtype."""
+        D and dt_bias in fp32, the rest in the parameter dtype.
+
+        On a tensor-parallel model each leaf is drawn whole and at once
+        cut to this rank's slice (``tp.place``), so the whole tensor is
+        freed before the next one is drawn: a rank's peak stays near its
+        shard plus the largest tensor.  The draws come in the same order
+        either way, so every rank's slices come from one device's
+        weights."""
         cfg = self.cfg
         pdt, cdt = L.dtype_of(cfg.param_dtype), L.dtype_of(cfg.compute_dtype)
         f32 = torch.float32
         n, d = cfg.layers, cfg.d_model
+        place = self.tp.place if self.tp is not None else None
 
+        # each leaf is a thunk until the tree is complete; the tree is
+        # then made leaf by leaf in its insertion order, which is the
+        # order the thunks were written in
         def normal(shape, std, dtype):
-            return torch.empty(shape, dtype=dtype, device=device).normal_(
+            return lambda: torch.empty(shape, dtype=dtype,
+                                       device=device).normal_(
                 0.0, std, generator=generator)
 
         def full(shape, value, dtype):
-            return torch.full(shape, value, dtype=dtype, device=device)
+            return lambda: torch.full(shape, value, dtype=dtype,
+                                      device=device)
 
         def proj(d_in, d_out, lead=(n,)):
             return {"w": normal(lead + (d_in, d_out), 1.0 / math.sqrt(d_in),
@@ -168,15 +187,28 @@ class Model:
         if not cfg.tie_embeddings:
             w = normal((d, cfg.padded_vocab), 1.0 / math.sqrt(d), pdt)
             p["lm_head"] = {"w": w}
-        return p
+        if place is None:
+            return map_with_paths(lambda path, make: make(), p)
+        return map_with_paths(lambda path, make: place(path, make()), p)
 
     # ----------------------------------------------------------- embed
     def _embed_in(self, params, tokens, prefix=None):
         """Token embeddings (gemma2's scaled by sqrt(d_model) in the
         embedding's dtype), behind the frontend's ``prefix`` (B, P, d)
-        when one is given, in the compute dtype."""
+        when one is given, in the compute dtype.  With the vocabulary
+        split over TP ranks, each rank looks up the tokens of its rows
+        (zeros elsewhere) and one all_reduce sums the ranks' lookups,
+        exactly."""
         cfg = self.cfg
-        x = L.embed(params["embed"], tokens)
+        tp = self.tp
+        if tp is not None and tp.embed_split:
+            e = params["embed"]["e"]
+            rows = tokens - tp.index * e.shape[0]
+            mine = (rows >= 0) & (rows < e.shape[0])
+            x = tp.all_reduce(torch.where(
+                mine[..., None], e[rows.clamp(0, e.shape[0] - 1)], 0))
+        else:
+            x = L.embed(params["embed"], tokens)
         if cfg.name.startswith("gemma2"):
             # the scale rounded to the embedding's dtype, as the reference
             # takes it
@@ -195,6 +227,14 @@ class Model:
             logits = x.to(ldt) @ w.to(ldt)
         else:
             logits = x.to(torch.float32) @ w.to(torch.float32)
+        tp = self.tp
+        if tp is not None and tp.head_split:
+            # the ranks' vocab columns gathered exactly: each writes its
+            # own into zeros, and the all_reduce sums them
+            full = logits.new_zeros(logits.shape[:-1] + (cfg.padded_vocab,))
+            lo = tp.index * logits.shape[-1]
+            full[..., lo:lo + logits.shape[-1]] = logits
+            logits = tp.all_reduce(full)
         if cfg.logit_softcap:
             logits = cfg.logit_softcap * torch.tanh(
                 logits / cfg.logit_softcap)
@@ -213,21 +253,30 @@ class Model:
         False (a global layer of an alternating stack), and its attention
         softcap to every layer.  ``cache`` {"k", "v"} is updated in
         place.  The MoE layer's aux loss is a training term; serving
-        drops it."""
+        drops it.  On a tensor-parallel rank the attention runs the
+        rank's heads and the MLP its share of d_ff (the MoE its experts),
+        and one all_reduce after each sums the partial outputs."""
         cfg = self.cfg
+        tp = self.tp
+        heads = (dict(n_heads=tp.n_heads, kv_heads=tp.kv_heads,
+                      kv_range=tp.kv_range) if tp is not None
+                 else dict(n_heads=cfg.n_heads, kv_heads=cfg.kv_heads))
         h, _ = L.attention_apply(
-            lp["attn"], L.apply_norm(lp["ln1"], x, cfg.norm),
-            n_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
+            lp["attn"], L.apply_norm(lp["ln1"], x, cfg.norm), **heads,
             head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
             q_positions=positions, causal=True, window=cfg.window,
             window_active=window_flag, softcap=cfg.attn_softcap,
             cache=cache, cache_index=cache_index)
+        if tp is not None and tp.attn_split:
+            h = tp.all_reduce(h)
         x = x + h
         y = L.apply_norm(lp["ln2"], x, cfg.norm)
         if "moe" in lp:
-            h, _ = MOE.moe_apply(lp["moe"], cfg, y)
+            h, _ = MOE.moe_apply(lp["moe"], cfg, y, tp=tp)
         else:
             h = L.mlp_apply(lp["mlp"], y, use_fused=cfg.fused_mlp)
+            if tp is not None and tp.mlp_split:
+                h = tp.all_reduce(h)
         return x + h
 
     def _forward_stack(self, params, x, positions, *, caches=None,
@@ -421,7 +470,9 @@ class Model:
         block); RWKV state and shift carries on the layer axis; Mamba2
         states and conv carries on (group, layer in group).  The MoE and
         VLM families' cache is the dense one; the encoder-decoder's is
-        the decoder's self-attention cache, {"self": {"k", "v"}}."""
+        the decoder's self-attention cache, {"self": {"k", "v"}}.  On a
+        tensor-parallel rank the KV caches hold the rank's KV heads
+        (``cache_spec``'s split)."""
         cfg = self.cfg
         dt = L.dtype_of(cfg.compute_dtype)
         f32 = torch.float32
@@ -431,7 +482,8 @@ class Model:
             return torch.zeros(shape, dtype=dtype, device=device)
 
         def kv(n_layers):
-            shape = (n_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
+            heads = cfg.kv_heads if self.tp is None else self.tp.kv_heads
+            shape = (n_layers, batch, max_len, heads, cfg.head_dim)
             return {"k": zeros(shape), "v": zeros(shape)}
 
         if cfg.family in ("dense", "moe", "vlm"):

@@ -30,6 +30,13 @@ There is no hand kernel on this path: the reference's experts are
 ``jnp.einsum``s, and the family's layers have no dense MLP, so no GOMA
 kernel is dispatched.  ``moe_apply`` also returns the Switch
 load-balancing loss.
+
+On a tensor-parallel rank (``tp``; expert parallelism on the model axis)
+the banks hold the rank's E/TP experts and the shared experts its share
+of their d_ff; the router is whole, so every rank routes every token
+alike, runs its own experts on the tokens routed to them and sums its
+partial output in the fixed order above; one all_reduce then adds the
+ranks' partial sums (``parallel.tp_sum``).
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import Params
+from .parallel import tp_sum
 
 _F32 = torch.float32
 
@@ -90,36 +98,52 @@ def _shared(p: Params, xf: torch.Tensor) -> torch.Tensor:
     return h @ sh["wd"]["w"].to(_F32)
 
 
-def moe_apply(p: Params, cfg, x: torch.Tensor):
+def _local_experts(p: Params, tp) -> tuple[int, int]:
+    """The range of expert ids this rank's banks hold."""
+    n = p["wd"].shape[0]
+    lo = tp.index * n if tp is not None and tp.experts_split else 0
+    return lo, lo + n
+
+
+def _combine_shared(p: Params, cfg, xf, y, tp):
+    parts = [(y, tp is not None and tp.experts_split)]
+    if cfg.shared_experts:
+        parts.append((_shared(p, xf), tp is not None and tp.shared_split))
+    return tp_sum(tp, parts)
+
+
+def moe_apply(p: Params, cfg, x: torch.Tensor, *, tp=None):
     """x: (B, S, d).  Returns (y in x's dtype, aux loss); the dispatch per
     ``cfg.moe_dispatch``."""
     if getattr(cfg, "moe_dispatch", "dense") == "gathered":
-        return moe_apply_gathered(p, cfg, x)
+        return moe_apply_gathered(p, cfg, x, tp=tp)
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     xf = x.reshape(B * S, d).to(_F32)
     probs, top_w, top_i = _route(p, cfg, xf)
     # the combine weights as a dense (T, E) matrix: zero off the top-k
     combine = torch.zeros_like(probs).scatter_add_(-1, top_i, top_w)
-    # every expert over every token: (E, T, F), one batched product each
+    lo, hi = _local_experts(p, tp)
+    # every (local) expert over every token: (E, T, F), one batched
+    # product each
     g = torch.matmul(xf, p["wg"].to(_F32))
     u = torch.matmul(xf, p["wu"].to(_F32))
-    h = F.silu(g) * u * combine.T[:, :, None]
+    h = F.silu(g) * u * combine.T[lo:hi, :, None]
     # sum over (expert, f) in one product: (T, E * F) @ (E * F, d)
     wd = p["wd"].to(_F32)
     y = h.permute(1, 0, 2).reshape(B * S, -1) @ wd.reshape(-1, d)
-    if cfg.shared_experts:
-        y = y + _shared(p, xf)
+    y = _combine_shared(p, cfg, xf, y, tp)
     aux = _aux_loss(probs, top_i, E, k)
     return y.reshape(B, S, d).to(x.dtype), aux
 
 
 def moe_apply_gathered(p: Params, cfg, x: torch.Tensor, *,
-                       capacity_factor: float = 1.25):
+                       capacity_factor: float = 1.25, tp=None):
     """Sort-based capacity-bucketed dispatch: each expert processes at most
     C = capacity_factor * T * k / E of its routed tokens, in the order of
     a stable sort on expert ids; the rest drop.  A trash row absorbs the
-    dropped tokens' scatters."""
+    dropped tokens' scatters.  A tensor-parallel rank runs its experts'
+    buffers; tokens routed elsewhere contribute zeros to its partial sum."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
@@ -139,18 +163,20 @@ def moe_apply_gathered(p: Params, cfg, x: torch.Tensor, *,
     # scatter the tokens into (E*C [+1 trash], d) expert buffers
     xbuf = torch.zeros((E * C + 1, d), dtype=_F32, device=dev)
     xbuf[buf_idx] = xf[order // k]
-    xe = xbuf[:E * C].reshape(E, C, d)
+    lo, hi = _local_experts(p, tp)
+    xe = xbuf[:E * C].reshape(E, C, d)[lo:hi]
     g = torch.bmm(xe, p["wg"].to(_F32))
     u = torch.bmm(xe, p["wu"].to(_F32))
-    ye = torch.bmm(F.silu(g) * u, p["wd"].to(_F32)).reshape(E * C, d)
+    ye = torch.bmm(F.silu(g) * u, p["wd"].to(_F32)).reshape(-1, d)
+    if hi - lo != E:
+        ye = torch.zeros((E * C, d), dtype=_F32, device=dev).index_copy_(
+            0, torch.arange(lo * C, hi * C, device=dev), ye)
     # back to (token, choice) order: each token sums its k contributions
     # in a fixed order; dropped ones weigh zero
     slot = torch.empty_like(buf_idx)
     slot[order] = buf_idx
     weight = top_w.reshape(-1) * (slot < E * C)
     contrib = ye[torch.clamp(slot, max=E * C - 1)] * weight[:, None]
-    y = contrib.reshape(T, k, d).sum(1).reshape(B, S, d)
-    if cfg.shared_experts:
-        y = y + _shared(p, xf).reshape(B, S, d)
+    y = _combine_shared(p, cfg, xf, contrib.reshape(T, k, d).sum(1), tp)
     aux = _aux_loss(probs, top_i, E, k)
-    return y.to(x.dtype), aux
+    return y.reshape(B, S, d).to(x.dtype), aux

@@ -18,6 +18,13 @@ resolves every kernel plan with zero solver calls.
 
 ``verify_step`` is speculative decoding's batched verify (the router's
 ``spec`` module and the scheduler's spec decode).
+
+On a tensor-parallel model (``dist.serve.shard_engine``) every rank runs
+the same host loop on its shard; every rank holds the full logits after
+their gather, so greedy and seeded sampling pick the same token on each,
+and each step checks that they do with one all_reduce of the step's
+tokens.  Rank 0 prewarms the plan store first; the other ranks wait for
+it and then read the plans of the same (local) shapes from it.
 """
 from __future__ import annotations
 
@@ -72,6 +79,14 @@ def _insert_row(slot_cache: dict, row_cache: dict, slot: int) -> None:
             big[:, slot].copy_(small[:, 0])
 
 
+def _check_agree(agree: torch.Tensor | None) -> None:
+    """Raise unless the tensor-parallel ranks' token checks so far all
+    held (``agree`` is the same on every rank; None without TP)."""
+    if agree is not None and not bool(agree):
+        raise RuntimeError("the tensor-parallel ranks sampled different "
+                           "tokens")
+
+
 class Engine:
     def __init__(self, model: Model, params: dict, cfg: ServeConfig, *,
                  plan_store=None):
@@ -82,6 +97,13 @@ class Engine:
         # optional GOMA plan database (planner.PlanStore): serving
         # traffic consumes cached kernel tilings instead of solving inline
         self.plan_store = plan_store
+
+    @property
+    def mesh(self):
+        """The mesh of a tensor-parallel model (``launch.mesh.HostMesh``);
+        None on one device."""
+        tp = self.model.tp
+        return None if tp is None else tp.mesh
 
     # ----------------------------------------------------- step-level API
     def new_cache(self, batch: int) -> dict:
@@ -172,7 +194,25 @@ class Engine:
 
         dtype_bytes defaults to the model's compute dtype — plan identity
         includes the dtype-rescaled shared-memory capacity, so prewarming
-        bf16 plans for an fp32 engine would all miss at dispatch time."""
+        bf16 plans for an fp32 engine would all miss at dispatch time.
+
+        On a tensor-parallel engine the capture traces the rank's local
+        model, so the shapes are the local ones; rank 0 plans them into
+        the store before the other ranks, which then read them (so no
+        two ranks put the same plan at once)."""
+        mesh = self.mesh
+        if mesh is not None and mesh.rank != 0:
+            mesh.barrier()
+        try:
+            return self._prewarm_plans(arch_id, batch, prompt_len,
+                                       dtype_bytes=dtype_bytes,
+                                       source=source)
+        finally:
+            if mesh is not None and mesh.rank == 0:
+                mesh.barrier()
+
+    def _prewarm_plans(self, arch_id, batch, prompt_len, *, dtype_bytes,
+                       source):
         if source == "capture":
             from ..capture.plan import serving_capture_shapes
             self._install_store()
@@ -372,7 +412,10 @@ class Engine:
         position).  Rows that hit the stop token are padded with it;
         columns after the early exit are 0.  With temperature > 0 each
         step draws fresh Gumbel noise from ``rng`` (a torch.Generator on
-        the engine's device)."""
+        the engine's device).  On a tensor-parallel engine a step whose
+        token differs between ranks raises on every rank together: at
+        the first stop check after it (before the ranks' ``done`` could
+        part them), else at the end of the loop."""
         cfg = self.cfg
         B, S = tokens.shape
         prefix = 0
@@ -391,6 +434,8 @@ class Engine:
         out = torch.zeros((B, cfg.max_new_tokens), dtype=torch.int32,
                           device=self.device)
         cur = self.sample(logits[:, -1], rng)
+        tp = self.model.tp
+        agree = None if tp is None else tp.tokens_agree(cur)
         done = torch.zeros((B,), dtype=torch.bool, device=self.device)
         fill = torch.tensor(cfg.stop_token or 0, dtype=torch.int32,
                             device=self.device)
@@ -400,14 +445,21 @@ class Engine:
                 done = done | (cur == cfg.stop_token)
                 last = t == cfg.max_new_tokens - 1
                 if (t % self.STOP_CHECK_EVERY == self.STOP_CHECK_EVERY - 1
-                        or last) and bool(done.all()):
-                    break
+                        or last):
+                    # the ranks' `done` agree while their tokens do, so
+                    # all of them leave the loop at the same step
+                    _check_agree(agree)
+                    if bool(done.all()):
+                        break
             if t + 1 == cfg.max_new_tokens:
                 break               # the next step's token would be unused
             logits, cache = self.model.decode_step(
                 self.params, cache, cur[:, None].to(torch.int64),
                 prefix + S + t)
             cur = self.sample(logits[:, -1], rng)
+            if tp is not None:
+                agree = agree & tp.tokens_agree(cur)
+        _check_agree(agree)
         return out.cpu().numpy()
 
     def sample(self, logits: torch.Tensor,

@@ -206,6 +206,11 @@ class ContinuousScheduler:
                  plan_groups: dict | None = None,
                  chain_groups: dict | None = None):
         ensure_supported_family(engine.model.cfg)
+        if getattr(engine, "mesh", None) is not None:
+            raise NotImplementedError(
+                "the scheduler on a tensor-parallel engine is not ported "
+                "yet: every rank would need the same admission decisions "
+                "(ROADMAP A13, its remainder)")
         kw = dict(arch_id=arch_id, plan_groups=plan_groups,
                   plan_store=engine.plan_store)
         for what, is_set, item in UNPORTED:

@@ -32,7 +32,9 @@ def test_modules_found():
               "models.moe", "serving.router", "serving.router.router",
               "serving.router.prefix", "serving.router.spec", "capture",
               "capture.trace", "capture.program", "capture.plan",
-              "capture.reference", "obs.fidelity", "obs.calibrate"):
+              "capture.reference", "obs.fidelity", "obs.calibrate",
+              "sharding", "sharding.rules", "launch.mesh", "dist.serve",
+              "dist.serve_smoke", "models.parallel"):
         assert f"repro_torch.{m}" in MODULES
     assert len(MODULES) >= 30
 
@@ -63,7 +65,9 @@ def test_no_source_imports_jax_or_the_reference():
             "serving/router/spec.py", "capture/__init__.py",
             "capture/trace.py", "capture/program.py", "capture/plan.py",
             "capture/reference.py", "obs/fidelity.py",
-            "obs/calibrate.py"} <= scanned
+            "obs/calibrate.py", "sharding/rules.py", "launch/mesh.py",
+            "dist/serve.py", "dist/serve_smoke.py",
+            "models/parallel.py"} <= scanned
 
 
 def test_serve_without_a_card_exits_nonzero():
