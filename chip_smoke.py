@@ -63,7 +63,22 @@ one's launch counts:
   at the per-rank shapes phase 3 holds, and exactly 2 all-reduces a
   layer and 2 for the split vocabulary a pass), tokens/s, peak memory per
   rank and the time of one all-reduce, and the fp32 gate at 4 layers
-  against one rank.
+  against one rank;
+- the rest of tensor-parallel serving (phase 19), the ranks again on the
+  one card over gloo: at TP 2 and 4 the ``rwkv6-7b`` (B3 at a rank's
+  heads), ``zamba2-2.7b`` (B4, B2), ``seamless-m4t-medium`` and
+  ``llava-next-34b`` smoke configs card == CPU == one rank with exact
+  all-reduces, and phase 10's trace behind the scheduler (llama3-8b with
+  the fused MLP on and off, deepseek-moe-16b) card == CPU == one rank's
+  scheduler == the static oracle, 0 solver calls after rank 0's
+  prewarm; at TP 2 a router of 2 replicas == the one-rank router, phase
+  11's deployment at full width from rank 0's capture prewarm (0 solver
+  calls and store misses, B1 and ``goma_combine`` with exact counts at
+  the per-rank chunk and slot shapes phase 3 holds, the same streams on
+  every rank, the fp32 gate at 4 layers against one rank's
+  teacher-forced prefills), and ``rwkv6-7b`` and ``zamba2-2.7b`` at full
+  width (B3 at 32 and B4 at 40 heads a rank, B1 at zamba2's per-rank
+  MLP, exact launches and all-reduces, the fp32 kernel-vs-plain gates).
 
 Imports nothing of JAX and nothing of the reference package.
 
@@ -281,10 +296,40 @@ TP_SERVE = dict(worlds=(2, 4), smoke=(("llama3-8b", {"fused_mlp": True}),
 SERVED_MLPS.update({
     f"llama3-8b TP{n}": ((FULL["batch"], FULL["batch"] * FULL["prompt_len"]),
                          14336 // n, 4096) for n in TP_SERVE["worlds"]})
-# the smoke chain's rows (decode, prefill) and local d_ff at each TP
+# the rest of tensor-parallel serving (phase 19), the ranks on the card
+# over gloo as in phase 18.  19a: the recurrent, hybrid, encdec and vlm
+# smoke configs (the scans' kernels, the hybrid's fused MLP) at phase 4's
+# batch, prompt and new tokens; 19b: phase 10's scheduler smoke at the
+# local d_ff, and a router of 2 replicas at TP 2; 19c: phase 11's
+# deployment at TP 2 from rank 0's capture prewarm, its fp32 gate at 4
+# layers; 19d: rwkv6-7b and zamba2-2.7b at full width at TP 2 on phases
+# 8 and 9's static path, their fp32 kernel-vs-plain gates at 4 layers
+# (zamba2-2.7b's at 6: its first shared-block application, with the MLP's
+# B1 and goma_combine, follows the sixth Mamba2 layer)
+TP_REST = dict(
+    worlds=(2, 4), full_world=2, replicas=2,
+    smoke=(("rwkv6-7b", {"use_pallas_scan": True}),
+           ("zamba2-2.7b", {"use_pallas_scan": True, "fused_mlp": True}),
+           ("seamless-m4t-medium", {}), ("llava-next-34b", {})),
+    sched=(("llama3-8b", {"fused_mlp": True}), ("llama3-8b", {}),
+           ("deepseek-moe-16b", {})),
+    recurrent=(("rwkv6-7b", {"use_pallas_scan": True}),
+               ("zamba2-2.7b", {"use_pallas_scan": True,
+                                "fused_mlp": True})),
+    gate_layers={"llama3-8b": 4, "rwkv6-7b": 4, "zamba2-2.7b": 6})
+SERVED_MLPS.update({
+    "llama3-8b scheduler TP2": (SERVED_MLPS["llama3-8b scheduler"][0],
+                                14336 // 2, 4096),
+    "zamba2-2.7b TP2": (SERVED_MLPS["zamba2-2.7b"][0], 10240 // 2, 2560)})
+# B3 and B4 at a rank's heads at TP 2 (phase 19d)
+TP_WKV, TP_SSD = (4, 256, 32, 64), (4, 256, 40, 64, 64)
+# the smoke chain's rows (decode, prefill; the scheduler smoke's slots
+# and chunk widths) and local d_ff at each TP
 TP_SMOKE_CHAINS = tuple((M, 128 // n) for n in TP_SERVE["worlds"]
-                        for M in (FULL["batch"],
-                                  FULL["batch"] * FULL["prompt_len"]))
+                        for M in sorted({
+                            FULL["batch"], FULL["batch"] * FULL["prompt_len"],
+                            SCHED_SMOKE["slots"],
+                            *SCHED_SMOKE["chunk_widths"]}))
 
 
 @contextlib.contextmanager
@@ -2995,7 +3040,8 @@ def seamless_full(checked: set, smi: str,
 # ------------------------------------------------------------- phase 18
 def tp_smoke_setup(arch: str, knobs: dict):
     """A smoke config as serve_smoke serves it: (model, weights made on
-    the CPU from the seed, prompts, serving config)."""
+    the CPU from the seed, prompts, the frontend's inputs or None,
+    serving config)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serving import ServeConfig
@@ -3005,35 +3051,53 @@ def tp_smoke_setup(arch: str, knobs: dict):
     prompts = np.random.default_rng(SEED).integers(
         0, model.cfg.vocab, (FULL["batch"], FULL["prompt_len"])).astype(
         np.int32)
-    return model, params, prompts, ServeConfig(
+    return model, params, prompts, frontend_inputs(
+        model.cfg, FULL["batch"], "cpu"), ServeConfig(
         max_new_tokens=FULL["new_tokens"], cache_len=32)
+
+
+def smoke_kernels(cfg) -> tuple[str, ...]:
+    """The kernels a smoke config's generate must launch on the card."""
+    return tuple(name for name, on in (
+        ("goma_fused_matmul", cfg.fused_mlp),
+        ("wkv6_scan", cfg.use_pallas_scan and cfg.family == "rwkv"),
+        ("ssd_scan", cfg.use_pallas_scan and cfg.family == "hybrid"))
+        if on)
 
 
 def tp_smoke_rank(world: int, arch: str, knobs: dict, checked: set) -> dict:
     """One rank of a smoke config sharded over ``world`` ranks: greedy
     tokens with the ranks on the CPU (gloo over CPU tensors) and on the
-    card (gloo over CUDA tensors), every kernel launch on the card at a
-    shape phase 3 held (B2 at the local d_ff)."""
+    card (gloo over CUDA tensors), every kernel the config runs launched
+    on the card at a shape phase 3 held (B2 at the local d_ff, the scans
+    at the rank's heads), and the generate's all_reduces exactly the
+    layout's (a prefill and new - 1 decode passes)."""
     from repro_torch.dist.serve import shard_engine
     from repro_torch.models.model import tree_to
     from repro_torch.serving import Engine
-    model, params, prompts, scfg = tp_smoke_setup(arch, knobs)
+    model, params, prompts, extra, scfg = tp_smoke_setup(arch, knobs)
     cpu = Engine(model, params, scfg)
     shard_engine(cpu, model_axis=world)
-    cpu_tokens = cpu.generate(prompts)
+    cpu_tokens = cpu.generate(prompts, extra_batch=extra)
     card = Engine(model, tree_to(params, "cuda"), scfg)
     shard_engine(card, model_axis=world)
     reset_launches()
     seen = {}
     with recording_shapes(seen):
-        card_tokens = card.generate(prompts)
+        card_tokens = card.generate(prompts, extra_batch=extra)
     launches = launch_counts()
     shapes = held_shapes(seen, launches, checked)
-    if model.cfg.fused_mlp and launches["goma_fused_matmul"] <= 0:
+    missing = [k for k in smoke_kernels(model.cfg) if launches[k] <= 0]
+    tp = card.model.tp
+    want = (tp.per_pass(prefill=True)
+            + (scfg.max_new_tokens - 1) * tp.per_pass(prefill=False))
+    if missing or tp.all_reduces != want:
         raise AssertionError(f"the {arch} smoke run on {world} ranks never "
-                             f"launched B2: {launches}")
+                             f"launched {missing} ({launches}), or made "
+                             f"{tp.all_reduces} all_reduces, not {want}")
     return {"cpu": cpu_tokens, "card": card_tokens, "launches": launches,
-            "shapes": shapes, "all_reduces": card.model.tp.all_reduces}
+            "shapes": shapes, "all_reduces": tp.all_reduces,
+            "replicated": tp.replicated, "relaid": tp.relaid}
 
 
 def all_reduce_ms(group, shape, dtype, reps: int = 20) -> float:
@@ -3207,11 +3271,8 @@ def tp_serve(checked: set, store_root: pathlib.Path, phase5: dict) -> dict:
     rank's.  Reported: tokens/s (TP 1 is phase 5's), peak memory per
     rank, time per all_reduce, and the bf16 streams against phase 5's."""
     from repro_torch.launch.mesh import run_ranks
-    from repro_torch.serving import Engine
-    oracle = {}
-    for arch, knobs in TP_SERVE["smoke"]:
-        model, params, prompts, scfg = tp_smoke_setup(arch, knobs)
-        oracle[arch] = Engine(model, params, scfg).generate(prompts)
+    oracle = {arch: smoke_oracle(arch, knobs)
+              for arch, knobs in TP_SERVE["smoke"]}
     want = tp_gate_logits()
     free_device()
     report, runs, shapes = {}, {}, {}
@@ -3276,6 +3337,557 @@ def tp_serve(checked: set, store_root: pathlib.Path, phase5: dict) -> dict:
         print(f"  TP {world}: fp32 gate at {TP_SERVE['gate_layers']} layers, "
               f"max abs err by rank {gate} (scale {serve['gate_scale']}, "
               f"tol {PATH_TOL} x scale); {seconds:.1f} s")
+    return {"serve": report, "launches": runs, "shapes": shapes}
+
+
+def smoke_oracle(arch: str, knobs: dict) -> np.ndarray:
+    """A smoke config's greedy tokens on one CPU device (tp_smoke_setup's
+    weights, prompts and frontend inputs)."""
+    from repro_torch.serving import Engine
+    model, params, prompts, extra, scfg = tp_smoke_setup(arch, knobs)
+    return Engine(model, params, scfg).generate(prompts, extra_batch=extra)
+
+
+# ------------------------------------------------------------- phase 19
+def tp_smoke_scans() -> tuple[list, list]:
+    """The B3 and B4 shapes (B, S, H, P[, N]) phase 19a's smoke configs
+    launch on a rank at each TP of TP_REST: phase 4's batch, the prompt
+    padded to the chunk, the rank's heads as its layout gives them (the
+    time mix of rwkv6-7b smoke stays whole at TP 4, ROADMAP C14)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.models import build_model
+    from repro_torch.models.parallel import TensorParallel
+    wkv, ssd = [], []
+    for n in TP_REST["worlds"]:
+        mesh = HostMesh(shape={"data": 1, "model": n},
+                        axis_names=("data", "model"), rank=0,
+                        coords={"data": 0, "model": 0})
+        for arch, _ in TP_REST["smoke"]:
+            cfg = get_config(arch, smoke=True)
+            S = -(-FULL["prompt_len"] // cfg.ssd_chunk) * cfg.ssd_chunk
+            if cfg.family == "rwkv":
+                tp = TensorParallel(build_model(cfg), mesh)
+                wkv.append((FULL["batch"], S, tp.rwkv_heads, 64))
+            elif cfg.family == "hybrid":
+                tp = TensorParallel(build_model(cfg), mesh)
+                ssd.append((FULL["batch"], S, tp.ssm_heads,
+                            cfg.ssm_head_dim, cfg.ssm_state))
+    return wkv, ssd
+
+
+def streams_of(results) -> dict:
+    return {r.req_id: (r.tokens, r.finish_reason) for r in results}
+
+
+def sched_smoke_oracle(arch: str, knobs: dict, replicas: int = 0) -> dict:
+    """Phase 10's trace on one CPU device through the scheduler (or a
+    router of ``replicas``), every stream held against the static oracle:
+    the streams."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving.router import ReplicaRouter, RouterConfig
+    from repro_torch.serving.sched import SchedConfig
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **knobs)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(SEED), "cpu")
+    reqs = smoke_trace(cfg.vocab)
+    scfg = ServeConfig(max_new_tokens=SCHED_SMOKE["new_tokens"],
+                       cache_len=SCHED_SMOKE["cache_len"])
+    sknobs = dict(slots=SCHED_SMOKE["slots"],
+                  chunk_widths=SCHED_SMOKE["chunk_widths"],
+                  stop_token=SCHED_SMOKE["stop"])
+    if replicas:
+        got = streams_of(ReplicaRouter(Engine(model, params, scfg),
+                                       RouterConfig(
+                                           replicas=replicas,
+                                           sched=SchedConfig(**sknobs)))
+                         .route_trace(reqs))
+    else:
+        _, got = replay_trace(Engine(model, params, scfg), reqs, **sknobs)
+    oracle = Engine(model, params, ServeConfig(
+        cache_len=SCHED_SMOKE["cache_len"]))
+    for req in reqs:
+        if got[req.req_id][0] != oracle_tokens(oracle, req):
+            raise AssertionError(f"{arch} request {req.req_id}: one rank's "
+                                 f"scheduler {got[req.req_id]} != the "
+                                 f"static oracle")
+    return got
+
+
+def tp_sched_smoke_rank(world: int, arch: str, knobs: dict, checked: set,
+                        store_dir: str, replicas: int = 0) -> dict:
+    """One rank of phase 10's trace on a smoke config sharded over
+    ``world`` ranks, behind a continuous scheduler (or a router of
+    ``replicas``) in trace time from a RankClock: the streams with the
+    ranks on the CPU and on the card; on the card from a fresh plan
+    store that rank 0 prewarms first, with 0 solver calls in the replay,
+    B2 (fused) once a layer a forward pass at shapes phase 3 held, and
+    the broadcasts (2 a tick: rank 0's orders and its tick time)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.solver import reset_solver_stats, solver_stats
+    from repro_torch.dist.serve import shard_engine
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_to
+    from repro_torch.planner.store import PlanStore
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving.router import RouterConfig
+    from repro_torch.serving.router.tp import TPReplicaRouter
+    from repro_torch.serving.sched import (ContinuousScheduler, SchedConfig,
+                                           replay)
+    from repro_torch.serving.sched.tp import RankClock
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **knobs)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(SEED), "cpu")
+    reqs = smoke_trace(cfg.vocab)
+    scfg = ServeConfig(max_new_tokens=SCHED_SMOKE["new_tokens"],
+                       cache_len=SCHED_SMOKE["cache_len"])
+    sknobs = SchedConfig(slots=SCHED_SMOKE["slots"],
+                         chunk_widths=SCHED_SMOKE["chunk_widths"],
+                         stop_token=SCHED_SMOKE["stop"])
+
+    def deploy(params, store=None):
+        eng = Engine(model, params, scfg, plan_store=store)
+        shard_engine(eng, model_axis=world)
+        if replicas:
+            router = TPReplicaRouter(eng, RouterConfig(replicas=replicas,
+                                                       sched=sknobs))
+            return eng, router.scheds, lambda: router.route_trace(reqs)
+        clock = RankClock(eng.model.tp)
+        sched = ContinuousScheduler(eng, sknobs, clock=clock.now)
+        return eng, [sched], lambda: replay(sched, reqs, clock)
+
+    cpu = streams_of(deploy(params)[2]())
+    eng, scheds, run = deploy(tree_to(params, "cuda"), PlanStore(store_dir))
+    tp = eng.model.tp
+    tp.broadcasts = 0
+    reset_solver_stats()
+    reset_launches()
+    seen = {}
+    with recording_shapes(seen):
+        card = streams_of(run())
+    launches = launch_counts()
+    solves = solver_stats()["calls"]
+    passes = sum(s.metrics.prefill_chunks + s.metrics.decode_steps
+                 for s in scheds)
+    ticks = sum(s.metrics.steps for s in scheds)
+    want = {**{k: 0 for k in launches},
+            "goma_fused_matmul": cfg.layers * passes * cfg.fused_mlp}
+    if launches != want or solves or tp.broadcasts != 2 * ticks:
+        raise AssertionError(
+            f"{arch} scheduler smoke on {world} ranks: launches {launches} "
+            f"(want {want}, {passes} forward passes), {solves} solver "
+            f"calls, {tp.broadcasts} broadcasts in {ticks} ticks")
+    return {"cpu": cpu, "card": card, "launches": launches,
+            "shapes": held_shapes(seen, launches, checked),
+            "ticks": ticks, "broadcasts": tp.broadcasts,
+            "per_replica": [len(s.results) for s in scheds]}
+
+
+def timed_collectives(tp) -> dict:
+    """Wrap ``tp``'s all_reduce, broadcast and tokens_agree (instance
+    attributes, so that ``del tp.all_reduce`` undoes it) to sum the host
+    seconds spent inside each, into the returned dict.  A collective's
+    time includes the wait for the ranks that reach it later."""
+    inside = {"all_reduce": 0.0, "broadcast": 0.0, "tokens_agree": 0.0}
+
+    def timed(name):
+        fn = getattr(tp, name)
+
+        def call(x):
+            t = time.perf_counter()
+            y = fn(x)
+            inside[name] += time.perf_counter() - t
+            return y
+        return call
+
+    for name in inside:
+        setattr(tp, name, timed(name))
+    return inside
+
+
+def tp_sched_full_rank(world: int, checked: set, store_dir: str) -> dict:
+    """One rank of phase 11's deployment (llama3-8b, bf16, fused MLP on)
+    sharded over ``world`` ranks: the rank's slices made on the card leaf
+    by leaf from the seed, the scheduler prewarmed by capture into a
+    fresh store (rank 0 first, the others then read it), then phase 11's
+    trace in trace time from a RankClock: 0 solver calls and 0 store
+    misses, B1 3 x 32 and goma_combine 32 a forward pass at shapes phase 3
+    held, finite logits; its metrics, peak memory, broadcasts a tick and
+    host seconds inside all_reduce and broadcast.  Then the fp32 gate at
+    TP_REST's depth: the trace again on the rank's fp32 slices, every
+    emitted token's logits row within PATH_TOL of scale of the
+    teacher-forced prefill of one unsharded model of the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.solver import reset_solver_stats, solver_stats
+    from repro_torch.dist.serve import shard_model
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.planner.store import PlanStore
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving.sched import (ContinuousScheduler, SchedConfig,
+                                           replay)
+    from repro_torch.serving.sched.tp import RankClock
+    mesh = make_host_mesh(model=world)
+    cfg = dataclasses.replace(get_config("llama3-8b"), fused_mlp=True)
+    model = shard_model(build_model(cfg), mesh)
+    tp = model.tp
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    weights = torch.cuda.memory_allocated() / 2**30
+    trace = sched_full_trace(cfg.vocab)
+    scfg = ServeConfig(max_new_tokens=SCHED_FULL["new_tokens"],
+                       cache_len=SCHED_FULL["cache_len"])
+    knobs = SchedConfig(slots=SCHED_FULL["slots"],
+                        chunk_widths=SCHED_FULL["chunk_widths"])
+    store = PlanStore(store_dir)
+    clock = RankClock(tp)
+    reset_solver_stats()
+    t0 = time.perf_counter()
+    sched = ContinuousScheduler(Engine(model, params, scfg,
+                                       plan_store=store), knobs,
+                                clock=clock.now)
+    prewarm = {"seconds": time.perf_counter() - t0,
+               "solver_calls": solver_stats()["calls"],
+               "tilings": sched.prewarmed_plans, "store": store.stats()}
+    finite = watch_logits(model)
+    reset_solver_stats()
+    reset_launches()
+    misses = store.misses
+    tp.all_reduces = tp.broadcasts = tp.token_checks = 0
+    inside = timed_collectives(tp)
+    seen = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording_shapes(seen):
+        results = replay(sched, trace, clock)
+    wall = time.perf_counter() - t0
+    del tp.all_reduce, tp.broadcast, tp.tokens_agree, model._lm_logits
+    counts, solves = launch_counts(), solver_stats()["calls"]
+    passes = sched.metrics.prefill_chunks + sched.metrics.decode_steps
+    want = {**{k: 0 for k in counts},
+            "goma_matmul": 3 * cfg.layers * passes,
+            "goma_combine": cfg.layers * passes}
+    if (solves or store.misses != misses or counts != want
+            or len(finite) != passes or not all(bool(f) for f in finite)):
+        raise AssertionError(
+            f"rank {mesh.rank} of {world}: {solves} solver calls, "
+            f"{store.misses - misses} store misses, launches {counts} (want "
+            f"{want}), {len(finite)} passes of {passes} or non-finite "
+            f"logits")
+    shapes = held_shapes(seen, counts, checked)
+    summ = sched.metrics.summary()
+    serve = {"metrics": summ, "prewarm": prewarm, "weights_gib": weights,
+             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "forward_passes": passes, "ticks": summ["steps"],
+             "replay_wall_seconds": wall,
+             "broadcasts_per_tick": tp.broadcasts / summ["steps"],
+             "all_reduces_per_pass": tp.all_reduces / passes,
+             "token_checks": tp.token_checks, "host_seconds_inside": inside,
+             "solver_calls": solves,
+             "store_misses": store.misses - misses}
+    streams = streams_of(results)
+    del sched, params, results
+    free_device()
+
+    # fp32 at TP_REST's depth: the rank's slices against one whole model
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
+                                layers=TP_REST["gate_layers"]["llama3-8b"])
+    model32 = shard_model(build_model(cfg32), mesh)
+    params32 = model32.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    clock = RankClock(model32.tp)
+    holder = {}
+    rows, slot_of, on_token = capture_emitted_logits(model32, holder)
+    sched = ContinuousScheduler(Engine(model32, params32, scfg), knobs,
+                                clock=clock.now, on_token=on_token)
+    holder["scheds"] = [sched]
+    results = replay(sched, trace, clock)
+    del model32.decode_step, sched, params32
+    free_device()
+    whole = build_model(cfg32)
+    errs = teacher_forced_errs(
+        whole, whole.init_params(
+            torch.Generator(device="cuda").manual_seed(SEED), "cuda"),
+        trace, results, rows)
+    serve["fp32_logits_max_err"] = max(max(e) for e in errs.values())
+    serve["fp32_slots_used"] = len(set(slot_of.values()))
+    return {"streams": streams, "launches": counts, "shapes": shapes,
+            "serve": serve}
+
+
+def tp_recurrent_rank(world: int, arch: str, knobs: dict,
+                      checked: set) -> dict:
+    """One rank of ``arch`` at its published widths, bf16, with the
+    config ``knobs`` (the scan kernel; zamba2-2.7b's fused MLP), sharded
+    over ``world`` ranks, on phases 8 and 9's static path: the rank's
+    slices made on the card leaf by leaf from the seed, then one generate
+    with exact launches (B3 or B4 once a layer in the prefill at the
+    rank's heads; B1 3 and goma_combine 1 a shared-block application a
+    pass) at shapes phase 3 held, the layout's all_reduces a pass and
+    finite logits; a second, timed generate with equal tokens and the
+    host seconds inside all_reduce.  Then the fp32 gate at TP_REST's
+    depth: the first prefill's logits through the kernels against the
+    plain path's (chunked scans, plain MLP), both on the rank's slices of
+    the same weights, within PATH_TOL of scale."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.serve import shard_model
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.serving import Engine, ServeConfig
+    mesh = make_host_mesh(model=world)
+    cfg = dataclasses.replace(get_config(arch), **knobs)
+    model = shard_model(build_model(cfg), mesh)
+    tp = model.tp
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    torch.cuda.synchronize()
+    made = {"seconds": time.perf_counter() - t0,
+            "weights_gib": torch.cuda.memory_allocated() / 2**30}
+    B, S, new = FULL["batch"], RECURRENT["prompt_len"], FULL["new_tokens"]
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (B, S)).astype(np.int32)
+    eng = Engine(model, params, ServeConfig(max_new_tokens=new,
+                                            cache_len=S + new + 8))
+    finite = watch_logits(model)
+    reset_launches()
+    tp.all_reduces = 0
+    seen = {}
+    with recording_shapes(seen):
+        tokens = eng.generate(prompts)
+    counts, passes, reduces = launch_counts(), len(finite), tp.all_reduces
+    del model._lm_logits
+    want = expected_launches(cfg, passes)
+    per_pass = (tp.per_pass(prefill=True)
+                + (passes - 1) * tp.per_pass(prefill=False))
+    if counts != want or reduces != per_pass or \
+            not all(bool(f) for f in finite):
+        raise AssertionError(
+            f"{arch} rank {mesh.rank} of {world}: launches {counts} (want "
+            f"{want}), {reduces} all_reduces (want {per_pass}), or "
+            f"non-finite logits")
+    shapes = held_shapes(seen, counts, checked)
+    inside = timed_collectives(tp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = eng.generate(prompts)
+    dt = time.perf_counter() - t0
+    del tp.all_reduce, tp.broadcast, tp.tokens_agree
+    if not np.array_equal(again, tokens):
+        raise AssertionError("a second greedy run gave other tokens")
+    serve = {"tokens_per_s": B * new / dt, "seconds": dt, "made": made,
+             "forward_passes": passes,
+             "all_reduces_per_pass": tp.per_pass(prefill=False),
+             "all_reduce_seconds_in_generate": inside["all_reduce"],
+             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del eng, params
+    free_device()
+
+    # fp32 at TP_REST's depth: kernel path against plain path
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
+                                layers=TP_REST["gate_layers"][arch])
+    model32 = shard_model(build_model(cfg32), mesh)
+    params32 = model32.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    plain = dataclasses.replace(model32, cfg=dataclasses.replace(
+        cfg32, use_pallas_scan=False, fused_mlp=False))
+    toks = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+    with torch.inference_mode():
+        got, want = (m.prefill(params32, {"tokens": toks}, max_len=S)[0]
+                     for m in (model32, plain))
+    serve["fp32_gate_max_abs_err"] = close_to_scale(got, want, PATH_TOL)
+    serve["fp32_gate_scale"] = float(want.abs().max())
+    return {"tokens": tokens, "launches": counts, "shapes": shapes,
+            "serve": serve}
+
+
+def tp_rest_rank(rank: int, world: int, checked: set,
+                 store_root: str) -> dict:
+    """Everything phase 19 runs on one rank of ``world``: 19a and 19b on
+    every world, 19c and 19d on TP_REST's full world.  The ranks share
+    the host's cores: each takes its share for torch's CPU threads, so
+    that the CPU runs and the ranks' host loops do not oversubscribe
+    them."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    out = {"smoke": {arch: tp_smoke_rank(world, arch, knobs, checked)
+                     for arch, knobs in TP_REST["smoke"]},
+           "sched": {}}
+    for i, (arch, knobs) in enumerate(TP_REST["sched"]):
+        out["sched"][sched_name(arch, knobs)] = tp_sched_smoke_rank(
+            world, arch, knobs, checked, f"{store_root}/sched{i}")
+    if world != TP_REST["full_world"]:
+        return out
+    out["router"] = tp_sched_smoke_rank(
+        world, *TP_REST["sched"][0], checked, f"{store_root}/router",
+        replicas=TP_REST["replicas"])
+    out["full"] = tp_sched_full_rank(world, checked, f"{store_root}/full")
+    free_device()
+    out["recurrent"] = {}
+    for arch, knobs in TP_REST["recurrent"]:
+        out["recurrent"][arch] = tp_recurrent_rank(world, arch, knobs,
+                                                   checked)
+        free_device()
+    return out
+
+
+def sched_name(arch: str, knobs: dict) -> str:
+    return arch + ("" if arch != "llama3-8b" else
+                   " fused" if knobs.get("fused_mlp") else " unfused")
+
+
+def tp_rest(checked: set, store_root: pathlib.Path, phase11: dict,
+            recurrent: dict) -> dict:
+    """Phase 19: for each world of TP_REST, its ranks spawned over gloo on
+    the one card.  19a: the recurrent, hybrid, encdec and vlm smoke
+    configs card == CPU == one rank with exact all_reduces; 19b: phase
+    10's trace behind the scheduler on llama3-8b (fused MLP on and off)
+    and deepseek-moe-16b smoke, card == CPU == one rank's scheduler ==
+    the static oracle with 0 solver calls after rank 0's prewarm, and a
+    router of 2 replicas at TP 2 == the one-rank router; on TP 2 also
+    19c, phase 11's deployment (every rank the same streams, the fp32
+    gate), and 19d, rwkv6-7b and zamba2-2.7b at full width (every rank
+    the same tokens, the fp32 gates).  Reported beside phase 11's and
+    phases 8 and 9's (``recurrent``) TP 1 numbers."""
+    from repro_torch.launch.mesh import run_ranks
+    oracle = {arch: smoke_oracle(arch, knobs)
+              for arch, knobs in TP_REST["smoke"]}
+    sched_oracle = {sched_name(arch, knobs): sched_smoke_oracle(arch, knobs)
+                    for arch, knobs in TP_REST["sched"]}
+    router_oracle = sched_smoke_oracle(*TP_REST["sched"][0],
+                                       replicas=TP_REST["replicas"])
+    free_device()
+    report, runs, shapes = {}, {}, {}
+    for world in TP_REST["worlds"]:
+        t0 = time.perf_counter()
+        ranks = run_ranks(tp_rest_rank, world, world, checked,
+                          str(store_root / f"tp{world}"), timeout_s=600)
+        seconds = time.perf_counter() - t0
+        for r, got in enumerate(ranks):
+            for arch, want in oracle.items():
+                run = got["smoke"][arch]
+                if not (np.array_equal(run["card"], want)
+                        and np.array_equal(run["cpu"], want)):
+                    raise AssertionError(
+                        f"{arch} smoke on rank {r} of {world}: card "
+                        f"{run['card'].tolist()}, cpu {run['cpu'].tolist()},"
+                        f" one rank {want.tolist()}")
+            for name, want in sched_oracle.items():
+                run = got["sched"][name]
+                if run["card"] != want or run["cpu"] != want:
+                    raise AssertionError(
+                        f"{name} scheduler smoke on rank {r} of {world}: "
+                        f"card {run['card']}, cpu {run['cpu']}, one rank "
+                        f"{want}")
+            if "router" in got and (got["router"]["card"] != router_oracle
+                                    or got["router"]["cpu"]
+                                    != router_oracle):
+                raise AssertionError(f"router on rank {r} of {world}: "
+                                     f"{got['router']} != one rank's "
+                                     f"{router_oracle}")
+            if "full" in got and (
+                    got["full"]["streams"] != ranks[0]["full"]["streams"]
+                    or any(not np.array_equal(
+                        got["recurrent"][a]["tokens"],
+                        ranks[0]["recurrent"][a]["tokens"])
+                        for a in got["recurrent"])):
+                raise AssertionError(f"rank {r} of {world} served other "
+                                     f"streams or tokens than rank 0")
+        first = ranks[0]
+        for arch in oracle:
+            key = f"TP{world} {arch} smoke (rank 0)"
+            runs[key] = first["smoke"][arch]["launches"]
+            shapes[key] = first["smoke"][arch]["shapes"]
+        for name in sched_oracle:
+            key = f"TP{world} scheduler {name} smoke (rank 0)"
+            runs[key] = first["sched"][name]["launches"]
+            shapes[key] = first["sched"][name]["shapes"]
+        print(f"  TP {world} ({seconds:.1f} s): smoke tokens card == cpu == "
+              f"one rank ({', '.join(oracle)}); all_reduces a generate "
+              f"{ {a: first['smoke'][a]['all_reduces'] for a in oracle} }; "
+              f"replicated { {a: first['smoke'][a]['replicated'] for a in oracle} }, "
+              f"relaid { {a: first['smoke'][a]['relaid'] for a in oracle} }")
+        print(f"  TP {world}: scheduler smoke streams card == cpu == one "
+              f"rank's scheduler == static oracle ({', '.join(sched_oracle)});"
+              f" launches { {n: first['sched'][n]['launches'] for n in sched_oracle} }; "
+              f"ticks and broadcasts "
+              f"{ {n: (first['sched'][n]['ticks'], first['sched'][n]['broadcasts']) for n in sched_oracle} }")
+        report[world] = {"seconds": seconds}
+        if "full" not in first:
+            continue
+        print(f"  TP {world}: router of {TP_REST['replicas']} replicas "
+              f"== one-rank router; requests by replica "
+              f"{first['router']['per_replica']}")
+        runs[f"TP{world} router llama3-8b smoke (rank 0)"] = \
+            first["router"]["launches"]
+        shapes[f"TP{world} router llama3-8b smoke (rank 0)"] = \
+            first["router"]["shapes"]
+        full = first["full"]
+        serve = dict(full["serve"],
+                     fp32_logits_max_err_by_rank=[
+                         g["full"]["serve"]["fp32_logits_max_err"]
+                         for g in ranks],
+                     peak_memory_gib_by_rank=[
+                         g["full"]["serve"]["peak_memory_gib"]
+                         for g in ranks],
+                     host_seconds_inside_by_rank=[
+                         g["full"]["serve"]["host_seconds_inside"]
+                         for g in ranks])
+        same = [a == b for rid, (t, _) in full["streams"].items()
+                for a, b in zip(t, phase11["streams"][rid][0])]
+        serve["tokens_equal_to_phase11"] = sum(same) / len(same)
+        report[world]["scheduler"] = serve
+        key = f"TP{world} scheduler llama3-8b full width (rank 0)"
+        runs[key], shapes[key] = full["launches"], full["shapes"]
+        summ = serve["metrics"]
+        print(f"  TP {world}: phase 11's deployment, streams equal on every "
+              f"rank ({serve['tokens_equal_to_phase11']} of the tokens "
+              f"equal to phase 11's bf16 streams); forward passes "
+              f"{serve['forward_passes']}, launches {full['launches']}; "
+              f"solver calls {serve['solver_calls']}, store misses "
+              f"{serve['store_misses']}; prewarm {serve['prewarm']}")
+        print(f"  TP {world}: tokens/s {summ['tokens_per_s']} (TP 1, phase "
+              f"11: {phase11['serve']['metrics']['tokens_per_s']}), ttft "
+              f"p50/p95 {summ['ttft_p50_s']}/{summ['ttft_p95_s']} s, tpot "
+              f"p50 {summ['tpot_p50_s']} s, ticks {serve['ticks']}, "
+              f"broadcasts a tick {serve['broadcasts_per_tick']}, "
+              f"all_reduces a pass {serve['all_reduces_per_pass']}; "
+              f"replay {serve['replay_wall_seconds']} s wall; host seconds "
+              f"inside by rank {serve['host_seconds_inside_by_rank']}; "
+              f"weights {serve['weights_gib']} GiB, peak memory by rank "
+              f"{serve['peak_memory_gib_by_rank']} GiB")
+        print(f"  TP {world}: fp32 gate at "
+              f"{TP_REST['gate_layers']['llama3-8b']} layers, every emitted "
+              f"token vs one rank's teacher-forced prefill, max abs err by "
+              f"rank {serve['fp32_logits_max_err_by_rank']} (tol {PATH_TOL} "
+              f"x scale)")
+        report[world]["recurrent"] = {}
+        for arch, run in first["recurrent"].items():
+            rs = dict(run["serve"],
+                      fp32_gate_max_abs_err_by_rank=[
+                          g["recurrent"][arch]["serve"]
+                          ["fp32_gate_max_abs_err"] for g in ranks],
+                      peak_memory_gib_by_rank=[
+                          g["recurrent"][arch]["serve"]["peak_memory_gib"]
+                          for g in ranks])
+            report[world]["recurrent"][arch] = rs
+            key = f"TP{world} serve {arch} full width (rank 0)"
+            runs[key], shapes[key] = run["launches"], run["shapes"]
+            print(f"  TP {world}: {arch} at full width, tokens "
+                  f"{run['tokens'].tolist()} on every rank; launches "
+                  f"{run['launches']}; {rs['all_reduces_per_pass']} "
+                  f"all_reduces a decode pass; {rs['tokens_per_s']} tokens/s"
+                  f" (TP 1: {recurrent[arch]['serve']['tokens_per_s']}), "
+                  f"{rs['all_reduce_seconds_in_generate']} of "
+                  f"{rs['seconds']} s inside all_reduce (rank 0); weights "
+                  f"{rs['made']} ; peak memory by rank "
+                  f"{rs['peak_memory_gib_by_rank']} GiB; fp32 gate at "
+                  f"{TP_REST['gate_layers'][arch]} layers, max abs err by "
+                  f"rank {rs['fp32_gate_max_abs_err_by_rank']} (scale "
+                  f"{rs['fp32_gate_scale']}, tol {PATH_TOL} x scale)")
     return {"serve": report, "launches": runs, "shapes": shapes}
 
 
@@ -3503,6 +4115,15 @@ def main() -> None:
         ssd_rows += [ssd_full] + [
             check_ssd(FULL_SSD, 128, torch.float32, gen, decay=d,
                       timed=False) for d in ("mild", "strong")]
+        # ... at a rank's heads at TP 2 (phase 19d), timed; and, untimed,
+        # at phase 19a's smoke configs' rank shapes
+        wkv_rows.append(check_wkv6(TP_WKV, 128, torch.float32, gen))
+        ssd_rows.append(check_ssd(TP_SSD, 128, torch.float32, gen))
+        smoke_wkv, smoke_ssd = tp_smoke_scans()
+        wkv_rows += [check_wkv6(sh, 8, torch.float32, gen, timed=False)
+                     for sh in sorted(set(smoke_wkv))]
+        ssd_rows += [check_ssd(sh, 8, torch.float32, gen, timed=False)
+                     for sh in sorted(set(smoke_ssd))]
     checked = ({checked_key("goma_matmul", r) for r in b1_rows}
                | {checked_key("goma_fused_matmul", r) for r in b2_rows}
                | {checked_key("goma_combine", r) for r in combine_rows}
@@ -3647,6 +4268,16 @@ def main() -> None:
         runs.update(tp["launches"])
         shapes.update(tp["shapes"])
     free_device()
+    with phase("19 the rest of tensor-parallel serving: the recurrent, "
+               "hybrid, encdec and vlm smoke configs, the scheduler and the "
+               "router, phase 11's deployment at TP 2 (B1, goma_combine) and "
+               "rwkv6-7b and zamba2-2.7b at full width at TP 2 (B3, B4 at a "
+               "rank's heads; B1)"):
+        tp_more = tp_rest(checked, stores / "tp_rest", sched,
+                          {"rwkv6-7b": rwkv, "zamba2-2.7b": zamba})
+        runs.update(tp_more["launches"])
+        shapes.update(tp_more["shapes"])
+    free_device()
 
     b1 = next(r for r in b1_rows if r["shape"] == [4, 14336, 4096])
     b2 = next(r for r in b2_rows if r["shape"] == [4, 128, 64])
@@ -3711,6 +4342,7 @@ def main() -> None:
                          "llava-next-34b": llava["serve"],
                          "seamless-m4t-medium": seamless["serve"]},
              "tensor_parallel": tp["serve"],
+             "tensor_parallel_rest": tp_more["serve"],
              "launches": runs,
              "shapes": shapes,
              "kernels": kernels,

@@ -17,10 +17,14 @@ Token identity: greedy decoding of the sharded engine is held
 token-identical to one device's (``dist.serve_smoke``).  The all-reduces
 reassociate the contraction sums, so float logits differ in ulps.
 
-Runs the dense and MoE families.  The recurrent, hybrid, encoder-decoder
-and VLM families are refused: their rules split packed columns (such as
-``ssm/in_proj``) that explicit TP cannot run as they are (ROADMAP A13's
-remainder).  So is ``mode="fsdp"``, which belongs to training (A14).
+Runs every family.  Where a rule's split cannot run as it is (a cut
+inside a head, packed Mamba2 columns, the RWKV channel mix's gate), the
+layout replicates or lays out the tensor otherwise (``TensorParallel``'s
+``replicated`` and ``relaid``; ROADMAP C13, C14).  A sharded engine also
+runs behind the continuous scheduler and the replica router, whose
+rank 0 decides every tick (``serving.sched.scheduler``,
+``serving.router.tp``).  ``mode="fsdp"`` is refused: it belongs to
+training (A14).
 
 Imports the serving stack's layers: not re-exported from
 ``repro_torch.dist``, as in the reference.

@@ -101,6 +101,11 @@ def ssd_scan(xh, dt, a_log, Bm, Cm, *, chunk: int = 64):
         if xh.device.type == "cpu":
             return ssd_scan_plain(xh, dt, a_log, Bm, Cm, chunk=chunk)
     a_log = a_log.to(torch.float32).contiguous()
+    if a_log.data_ptr() % 16:
+        # a layer's row of a stacked (layers, H) tensor: with a
+        # tensor-parallel rank's H (2 heads, say), not every row starts
+        # at a 16-byte boundary; the kernel reads a copy of its own
+        a_log = a_log.clone()
     check_cuda_operands("ssd_scan", xh, dt, Bm, Cm)
     check_cuda_operands("ssd_scan", a_log)
     lib = _build.load()

@@ -245,38 +245,47 @@ class Model:
         return logits
 
     # ------------------------------------------------------ layer stack
-    def _attn_block(self, lp, x, positions, *, window_flag=None,
-                    cache=None, cache_index=None):
+    def _heads(self, block: str) -> dict:
+        """The head counts the attention at ``block`` (a parameter path
+        such as "layers/attn") runs: a tensor-parallel rank's share."""
+        cfg = self.cfg
+        if self.tp is None:
+            return dict(n_heads=cfg.n_heads, kv_heads=cfg.kv_heads)
+        return self.tp.heads[block]
+
+    def _reduce(self, x: torch.Tensor, path: str) -> torch.Tensor:
+        """The output of the projection at ``path``, summed over the
+        tensor-parallel ranks where that projection is split by rows."""
+        return x if self.tp is None else self.tp.reduce(x, path)
+
+    def _attn_block(self, lp, x, positions, *, block="layers",
+                    window_flag=None, cache=None, cache_index=None):
         """Pre-norm attention and gated MLP (or mixture of experts) with
         residuals: a dense, VLM or MoE layer, or the hybrid's shared
-        block.  The config's window applies unless ``window_flag`` is
-        False (a global layer of an alternating stack), and its attention
-        softcap to every layer.  ``cache`` {"k", "v"} is updated in
-        place.  The MoE layer's aux loss is a training term; serving
-        drops it.  On a tensor-parallel rank the attention runs the
-        rank's heads and the MLP its share of d_ff (the MoE its experts),
-        and one all_reduce after each sums the partial outputs."""
+        block (``block`` is the path of its parameters).  The config's
+        window applies unless ``window_flag`` is False (a global layer
+        of an alternating stack), and its attention softcap to every
+        layer.  ``cache`` {"k", "v"} is updated in place.  The MoE
+        layer's aux loss is a training term; serving drops it.  On a
+        tensor-parallel rank the attention runs the rank's heads and the
+        MLP its share of d_ff (the MoE its experts), and one all_reduce
+        after each sums the partial outputs."""
         cfg = self.cfg
-        tp = self.tp
-        heads = (dict(n_heads=tp.n_heads, kv_heads=tp.kv_heads,
-                      kv_range=tp.kv_range) if tp is not None
-                 else dict(n_heads=cfg.n_heads, kv_heads=cfg.kv_heads))
         h, _ = L.attention_apply(
-            lp["attn"], L.apply_norm(lp["ln1"], x, cfg.norm), **heads,
+            lp["attn"], L.apply_norm(lp["ln1"], x, cfg.norm),
+            **self._heads(f"{block}/attn"),
             head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
             q_positions=positions, causal=True, window=cfg.window,
             window_active=window_flag, softcap=cfg.attn_softcap,
             cache=cache, cache_index=cache_index)
-        if tp is not None and tp.attn_split:
-            h = tp.all_reduce(h)
-        x = x + h
+        x = x + self._reduce(h, f"{block}/attn/wo/w")
         y = L.apply_norm(lp["ln2"], x, cfg.norm)
         if "moe" in lp:
-            h, _ = MOE.moe_apply(lp["moe"], cfg, y, tp=tp)
+            h, _ = MOE.moe_apply(lp["moe"], cfg, y, tp=self.tp)
         else:
-            h = L.mlp_apply(lp["mlp"], y, use_fused=cfg.fused_mlp)
-            if tp is not None and tp.mlp_split:
-                h = tp.all_reduce(h)
+            h = self._reduce(L.mlp_apply(lp["mlp"], y,
+                                         use_fused=cfg.fused_mlp),
+                             f"{block}/mlp/wd/w")
         return x + h
 
     def _forward_stack(self, params, x, positions, *, caches=None,
@@ -304,8 +313,12 @@ class Model:
         return self._ssm_stack(params, x, positions, caches, cache_index)
 
     def _rwkv_stack(self, params, x, caches, cache_index):
+        """RWKV-6 layers; on a tensor-parallel rank the time mix runs the
+        rank's heads and the channel mix its share of d_ff, one
+        all_reduce after each (``TensorParallel``)."""
         cfg = self.cfg
         decode = cache_index is not None
+        heads = None if self.tp is None else self.tp.rwkv_heads
         for i in range(cfg.layers):
             lp = index_tree(params["layers"], i)
             carry = (index_tree(caches, i) if caches is not None and decode
@@ -313,11 +326,12 @@ class Model:
             h, (state, tshift) = RW.rwkv_time_apply(
                 lp["time"], cfg, L.apply_norm(lp["ln1"], x, cfg.norm),
                 state=carry.get("state"), shift=carry.get("tshift"),
-                decode=decode)
-            x = x + h
+                decode=decode, heads=heads)
+            x = x + self._reduce(h, "layers/time/wo/w")
             h, cshift = RW.rwkv_channel_apply(
                 lp["chan"], cfg, L.apply_norm(lp["ln2"], x, cfg.norm),
-                shift=carry.get("cshift"))
+                shift=carry.get("cshift"),
+                reduce=lambda v: self._reduce(v, "layers/chan/wv/w"))
             x = x + h
             if caches is not None:
                 caches["state"][i].copy_(state)
@@ -332,6 +346,7 @@ class Model:
         period = cfg.attn_every if cfg.family == "hybrid" else cfg.layers
         shared = params.get("shared_block")
         decode = cache_index is not None
+        heads = None if self.tp is None else self.tp.ssm_heads
         for g in range(cfg.layers // period):
             for j in range(period):
                 lp = index_tree(params["layers"], g * period + j)
@@ -341,8 +356,9 @@ class Model:
                     conv = caches["ssm"]["conv"][g, j]
                 h, (state, conv) = SSM.ssm_apply(
                     lp["ssm"], cfg, L.apply_norm(lp["ln"], x, cfg.norm),
-                    state=state, conv_state=conv, decode=decode)
-                x = x + h
+                    state=state, conv_state=conv, decode=decode,
+                    heads=heads)
+                x = x + self._reduce(h, "layers/ssm/out_proj/w")
                 if caches is not None:
                     caches["ssm"]["state"][g, j].copy_(state)
                     caches["ssm"]["conv"][g, j].copy_(conv)
@@ -350,7 +366,8 @@ class Model:
                 cache = (None if caches is None
                          else {"k": caches["attn"]["k"][g],
                                "v": caches["attn"]["v"][g]})
-                x = self._attn_block(shared, x, positions, cache=cache,
+                x = self._attn_block(shared, x, positions,
+                                     block="shared_block", cache=cache,
                                      cache_index=cache_index)
         return x
 
@@ -358,7 +375,8 @@ class Model:
     def _encode(self, params, enc_embeds):
         """The encoder over frame embeddings (B, F, d): non-causal
         self-attention, then the MLP (unfused, as the reference calls
-        it), then the encoder's norm."""
+        it), then the encoder's norm.  On a tensor-parallel rank every
+        rank ends with the whole output, after its all_reduces."""
         cfg = self.cfg
         pos = torch.arange(enc_embeds.shape[1], device=enc_embeds.device)
         x = enc_embeds
@@ -366,12 +384,13 @@ class Model:
             lp = index_tree(params["encoder"], i)
             h, _ = L.attention_apply(
                 lp["attn"], L.apply_norm(lp["ln1"], x, cfg.norm),
-                n_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
+                **self._heads("encoder/attn"),
                 head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
                 q_positions=pos, causal=False)
-            x = x + h
-            x = x + L.mlp_apply(lp["mlp"], L.apply_norm(lp["ln2"], x,
-                                                        cfg.norm))
+            x = x + self._reduce(h, "encoder/attn/wo/w")
+            x = x + self._reduce(L.mlp_apply(
+                lp["mlp"], L.apply_norm(lp["ln2"], x, cfg.norm)),
+                "encoder/mlp/wd/w")
         return L.apply_norm(params["enc_norm"], x, cfg.norm)
 
     def _decode_stack_encdec(self, params, x, enc_out, positions, *,
@@ -381,25 +400,26 @@ class Model:
         ``enc_out`` (its keys and values projected again at every step,
         as the reference does), then the MLP (unfused)."""
         cfg = self.cfg
-        dims = dict(n_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
-                    head_dim=cfg.head_dim)
         for i in range(cfg.layers):
             lp = index_tree(params["layers"], i)
             cache = (None if caches is None
                      else {"k": caches["self"]["k"][i],
                            "v": caches["self"]["v"][i]})
             h, _ = L.attention_apply(
-                lp["attn"], L.apply_norm(lp["ln1"], x, cfg.norm), **dims,
+                lp["attn"], L.apply_norm(lp["ln1"], x, cfg.norm),
+                **self._heads("layers/attn"), head_dim=cfg.head_dim,
                 rope_theta=cfg.rope_theta, q_positions=positions,
                 causal=True, cache=cache, cache_index=cache_index)
-            x = x + h
+            x = x + self._reduce(h, "layers/attn/wo/w")
             h, _ = L.attention_apply(
-                lp["xattn"], L.apply_norm(lp["lnx"], x, cfg.norm), **dims,
+                lp["xattn"], L.apply_norm(lp["lnx"], x, cfg.norm),
+                **self._heads("layers/xattn"), head_dim=cfg.head_dim,
                 rope_theta=None, q_positions=positions, causal=False,
                 xkv=enc_out)
-            x = x + h
-            x = x + L.mlp_apply(lp["mlp"], L.apply_norm(lp["ln2"], x,
-                                                        cfg.norm))
+            x = x + self._reduce(h, "layers/xattn/wo/w")
+            x = x + self._reduce(L.mlp_apply(
+                lp["mlp"], L.apply_norm(lp["ln2"], x, cfg.norm)),
+                "layers/mlp/wd/w")
         return x
 
     # --------------------------------------------------------- serving
@@ -472,7 +492,9 @@ class Model:
         VLM families' cache is the dense one; the encoder-decoder's is
         the decoder's self-attention cache, {"self": {"k", "v"}}.  On a
         tensor-parallel rank the KV caches hold the rank's KV heads
-        (``cache_spec``'s split)."""
+        (``cache_spec``'s split), the recurrent states the rank's heads
+        and the Mamba2 conv carry its [x_r, B, C] channels; the RWKV
+        shift carries stay whole (``TensorParallel``)."""
         cfg = self.cfg
         dt = L.dtype_of(cfg.compute_dtype)
         f32 = torch.float32
@@ -481,8 +503,8 @@ class Model:
         def zeros(shape, dtype=dt):
             return torch.zeros(shape, dtype=dtype, device=device)
 
-        def kv(n_layers):
-            heads = cfg.kv_heads if self.tp is None else self.tp.kv_heads
+        def kv(n_layers, block="layers"):
+            heads = self._heads(f"{block}/attn")["kv_heads"]
             shape = (n_layers, batch, max_len, heads, cfg.head_dim)
             return {"k": zeros(shape), "v": zeros(shape)}
 
@@ -492,19 +514,22 @@ class Model:
             return {"layers": {"self": kv(n)}}
         if cfg.family == "rwkv":
             nh, hd = RW.rwkv_dims(cfg)
+            nh = nh if self.tp is None else self.tp.rwkv_heads
             return {"layers": {
                 "state": zeros((n, batch, nh, hd, hd), f32),
                 "tshift": zeros((n, batch, 1, cfg.d_model)),
                 "cshift": zeros((n, batch, 1, cfg.d_model))}}
         period = cfg.attn_every if cfg.family == "hybrid" else n
         groups = n // period
-        d_inner, nh, hd, ns = SSM.ssm_dims(cfg)
+        _, nh, hd, ns = SSM.ssm_dims(cfg)
+        nh = nh if self.tp is None else self.tp.ssm_heads
+        d_inner = nh * hd
         out = {"ssm": {
             "state": zeros((groups, period, batch, nh, hd, ns), f32),
             "conv": zeros((groups, period, batch, cfg.conv_kernel - 1,
                            d_inner + 2 * ns))}}
         if cfg.family == "hybrid":
-            out["attn"] = kv(groups)
+            out["attn"] = kv(groups, "shared_block")
         return {"layers": out}
 
 

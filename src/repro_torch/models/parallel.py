@@ -1,24 +1,44 @@
-"""Explicit Megatron tensor parallelism of the dense and MoE families
-over a mesh's "model" axis.
+"""Explicit Megatron tensor parallelism of every family over a mesh's
+"model" axis.
 
 The reference places its parameters under the rule table
 (``sharding.rules``) and lets GSPMD lower every program with
 collectives.  The port runs the same split by hand: each rank holds the
-local slice of every split parameter, runs its share of the heads, of
-d_ff, of the experts and of the vocabulary, and sums the partial
-results with one ``all_reduce`` after the attention's ``wo``, one after
-the MLP's ``wd`` (or the MoE's partial sum), one after a vocab-parallel
-embedding lookup (a masked local lookup) and one to gather the
-vocab-parallel logits (written into a zero-filled full-width buffer:
-an exact gather with the only collective besides ``broadcast`` that
-gloo runs on CUDA tensors).
+local slice of every split parameter, runs its share of the heads (of
+attention, of the RWKV time mix, of the Mamba2 scan), of d_ff, of the
+experts and of the vocabulary, and sums the partial results with one
+``all_reduce`` after each row-split projection (the attention's and the
+cross-attention's ``wo``, the MLP's ``wd`` or the MoE's partial sum, the
+RWKV time mix's ``wo`` and channel mix's ``wv``, the Mamba2
+``out_proj``), one after a vocab-parallel embedding lookup (a masked
+local lookup) and one to gather the vocab-parallel logits (written into
+a zero-filled full-width buffer: an exact gather with the only
+collective besides ``broadcast`` that gloo runs on CUDA tensors).
 
-Where the rule splits a tensor inside an attention head (``attn/wk/w``
-with fewer KV heads than ranks; ``attn/wq/w``, ``attn/wo/w`` with a head
-count that the ranks do not divide), explicit TP cannot run the split,
-and the layout replicates that tensor instead (``replicated``; ROADMAP
-C13).  With KV heads replicated, each rank's query heads read the one KV
-head they share (``kv_range``).
+Where the rule's split cannot run as it is, the execution layout
+differs from the rule (ROADMAP C13, C14):
+
+- ``replicated``: a tensor the rule splits that every rank holds whole.
+  Attention weights the rule cuts inside a head (``attn/wk/w`` with
+  fewer KV heads than ranks; ``attn/wq/w``, ``attn/wo/w`` with a head
+  count the ranks do not divide; the same for ``xattn``), where each
+  rank's query heads then read the one KV head they share
+  (``kv_range``); the RWKV time mix where the ranks do not divide its
+  heads of 64; the Mamba2 mixer where they do not divide its heads; and
+  the channel mix's ``chan/wr``, whose sigmoid gates the *summed*
+  ``wv`` output, so a column slice of it cannot be used before the sum.
+- ``relaid``: a tensor each rank holds a slice of that is not the
+  rule's block.  ``time/w_bias`` (rule: replicated) is added per head
+  after ``time/ww``, so each rank keeps its heads' slice.
+  ``ssm/in_proj/w`` packs [z, x, B, C, dt] and ``ssm/conv_w`` [x, B, C]
+  in its columns, which a contiguous split cuts across: each rank keeps
+  [z_r, x_r, B, C, dt_r] and [x_r, B, C] (its heads' channels and the
+  one group's B and C whole; ``ssm_columns``).
+
+The caches follow the execution layout: KV caches and recurrent states
+hold the rank's heads, the Mamba2 conv carry its [x_r, B, C] channels,
+and the RWKV token-shift carries and the encoder's output stay at the
+full d_model (they feed replicated inputs).
 """
 from __future__ import annotations
 
@@ -29,78 +49,161 @@ import torch.distributed as dist
 
 from ..sharding.rules import (TP, P, flatten_with_paths, leaf_at,
                               local_copy, map_with_paths, param_shardings)
+from .rwkv import rwkv_dims
+from .ssm import ssm_dims
 
-_QO = re.compile(r"(^|/)attn/w[qo]/w$")
-_KV = re.compile(r"(^|/)attn/w[kv]/w$")
-FAMILIES = ("dense", "moe")
+_QO = re.compile(r"(^|/)x?attn/w[qo]/w$")
+_KV = re.compile(r"(^|/)x?attn/w[kv]/w$")
+_TIME = re.compile(r"(^|/)time/(w[rkvgwo]/w|u)$")
+_SSM = re.compile(r"(^|/)ssm/")
+_CHAN_R = re.compile(r"(^|/)chan/wr/w$")
+_W_BIAS = re.compile(r"(^|/)time/w_bias$")
+_PACKED = re.compile(r"(^|/)ssm/(in_proj/w|conv_w)$")
+
+
+def ssm_columns(cfg, index: int, size: int) -> dict[str, torch.Tensor]:
+    """The columns of ``ssm/in_proj/w`` ([z, x, B, C, dt]) and of
+    ``ssm/conv_w`` ([x, B, C]) that rank ``index`` of ``size`` keeps:
+    its heads' z, x and dt and the whole B and C, in that order."""
+    d_inner, nh, _, ns = ssm_dims(cfg)
+    di, h = d_inner // size, nh // size
+
+    def at(lo, n):
+        return torch.arange(lo, lo + n)
+
+    x, bc = at(d_inner + index * di, di), at(2 * d_inner, 2 * ns)
+    return {"in_proj": torch.cat([at(index * di, di), x, bc,
+                                  at(2 * d_inner + 2 * ns + index * h, h)]),
+            "conv_w": torch.cat([x - d_inner, bc - d_inner])}
 
 
 class TensorParallel:
     """A model's tensor-parallel layout on ``mesh`` (``launch.mesh``),
-    for this rank: the execution spec of every parameter (``specs``), the
-    parameters whose rule spec it replicates (``replicated``), which
-    blocks are split, the local head counts, and the collectives, each
-    counted (``all_reduces``, ``token_checks``)."""
+    for this rank: the execution spec of every parameter (``specs``),
+    the parameters whose rule spec it replicates (``replicated``) or lays
+    out otherwise (``relaid``), which projections are split
+    (``split``), the local head counts of each attention block
+    (``heads``), of the RWKV time mix (``rwkv_heads``) and of the Mamba2
+    mixer (``ssm_heads``), and the collectives, each counted
+    (``all_reduces``, ``broadcasts``, ``token_checks``)."""
 
     def __init__(self, model, mesh, *, strict: bool = True):
         cfg = model.cfg
-        if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: tensor-parallel serving runs the dense and MoE "
-                f"families; the {cfg.family!r} family's rules split packed "
-                f"columns that explicit TP cannot use as they are (ROADMAP "
-                f"A13, its remainder)")
+        self.cfg = cfg
         self.mesh = mesh
-        self.size = mesh.shape.get(TP, 1)
+        self.size = n = mesh.shape.get(TP, 1)
         self.index = mesh.coords[TP] if mesh.coords is not None else 0
         self.group = mesh.model_group
+        meta = model.init_params(torch.Generator(), "meta")
+        paths = [path for path, _ in flatten_with_paths(meta)]
         H, KV = cfg.n_heads, cfg.kv_heads
-        heads_ok = H % self.size == 0
-        kv_ok = heads_ok and KV % self.size == 0
-        if heads_ok and not kv_ok and self.size % KV:
+        heads_ok = H % n == 0
+        kv_ok = heads_ok and KV % n == 0
+        if any(_QO.search(p) for p in paths) and heads_ok and not kv_ok \
+                and n % KV:
             raise NotImplementedError(
                 f"{cfg.name}: {KV} KV heads neither divide nor are divided "
-                f"by {self.size} ranks; a rank's query heads would read "
+                f"by {n} ranks; a rank's query heads would read "
                 f"parts of two KV heads")
-        rule = param_shardings(model.init_params(torch.Generator(), "meta"),
-                               mesh, mode="tp", strict=strict)
+        time_ok = cfg.family == "rwkv" and rwkv_dims(cfg)[0] % n == 0
+        ssm_ok = (cfg.family in ("ssm", "hybrid")
+                  and ssm_dims(cfg)[1] % n == 0)
+        rule = param_shardings(meta, mesh, mode="tp", strict=strict)
 
         def execution(path, spec):
-            if TP in spec and ((_QO.search(path) and not heads_ok)
-                               or (_KV.search(path) and not kv_ok)):
+            whole = ((_QO.search(path) and not heads_ok)
+                     or (_KV.search(path) and not kv_ok)
+                     or (_TIME.search(path) and not time_ok)
+                     or (_SSM.search(path) and not ssm_ok)
+                     or _CHAN_R.search(path))
+            if n > 1 and whole and TP in spec:
                 return P()
+            if n > 1 and time_ok and _W_BIAS.search(path):
+                return P(*([None] * (len(spec) - 1)), TP)
             return spec
 
         self.specs = map_with_paths(execution, rule)
+        flat = dict(flatten_with_paths(self.specs))
         self.replicated = sorted(
             path for path, spec in flatten_with_paths(rule)
-            if leaf_at(self.specs, path) != spec)
-
-        def split(path):
-            spec = leaf_at(self.specs, path)
-            return spec is not None and TP in spec
-
-        self.attn_split = split("layers/attn/wq/w")
-        self.kv_split = split("layers/attn/wk/w")
-        self.mlp_split = split("layers/mlp/wd/w")
-        self.experts_split = split("layers/moe/wd")
-        self.shared_split = split("layers/moe/shared/wd/w")
-        self.embed_split = split("embed/e")
+            if TP in spec and TP not in flat[path])
+        self.relaid = sorted(
+            path for path in paths if n > 1 and (
+                (time_ok and _W_BIAS.search(path))
+                or (ssm_ok and _PACKED.search(path))))
+        self._columns = (ssm_columns(cfg, self.index, n)
+                         if ssm_ok and n > 1 else {})
+        self._split = {path: TP in spec for path, spec in flat.items()}
+        self.heads = {}
+        for path in paths:
+            if _QO.search(path) and path.endswith("/wq/w"):
+                prefix = path[:-len("/wq/w")]
+                q_split = self.split(path)
+                kv_split = self.split(f"{prefix}/wk/w")
+                kv_range = None
+                if q_split and not kv_split and KV > 1:
+                    lo = self.index * KV // n
+                    kv_range = (lo, lo + 1)
+                self.heads[prefix] = dict(
+                    n_heads=H // n if q_split else H,
+                    kv_heads=KV // n if kv_split else KV,
+                    kv_range=kv_range)
+        if cfg.family == "rwkv":
+            nh = rwkv_dims(cfg)[0]
+            self.rwkv_heads = nh // n if self.split(
+                "layers/time/wr/w") else nh
+        if cfg.family in ("ssm", "hybrid"):
+            nh = ssm_dims(cfg)[1]
+            self.ssm_heads = nh // n if self.split(
+                "layers/ssm/out_proj/w") else nh
+        self.experts_split = self.split("layers/moe/wd")
+        self.shared_split = self.split("layers/moe/shared/wd/w")
+        self.embed_split = self.split("embed/e")
         self.head_split = (self.embed_split if cfg.tie_embeddings
-                           else split("lm_head/w"))
-        self.n_heads = H // self.size if self.attn_split else H
-        self.kv_heads = KV // self.size if self.kv_split else KV
-        self.kv_range = None
-        if self.attn_split and not self.kv_split and KV > 1:
-            lo = self.index * KV // self.size
-            self.kv_range = (lo, lo + 1)
+                           else self.split("lm_head/w"))
         self.all_reduces = 0
+        self.broadcasts = 0
         self.token_checks = 0
+
+    def split(self, path: str) -> bool:
+        """Whether the parameter at ``path`` is split over the ranks."""
+        return self._split.get(path, False)
+
+    def per_pass(self, *, prefill: bool) -> int:
+        """The all_reduces one forward pass makes: one after every
+        row-split projection it runs (the encoder's in a prefill only),
+        one for a split embedding and one for split logits."""
+        cfg, s = self.cfg, self.split
+        if cfg.family == "rwkv":
+            n = cfg.layers * (s("layers/time/wo/w") + s("layers/chan/wv/w"))
+        elif cfg.family in ("ssm", "hybrid"):
+            n = cfg.layers * s("layers/ssm/out_proj/w")
+            if cfg.family == "hybrid":
+                n += cfg.layers // cfg.attn_every * (
+                    s("shared_block/attn/wo/w")
+                    + s("shared_block/mlp/wd/w"))
+        else:
+            if cfg.family == "moe":
+                # the experts' and the shared experts' partial sums
+                # share one all_reduce
+                mlp = s("layers/moe/wd") or s("layers/moe/shared/wd/w")
+            else:
+                mlp = s("layers/mlp/wd/w")
+            n = cfg.layers * (s("layers/attn/wo/w") + mlp
+                              + s("layers/xattn/wo/w"))
+            if cfg.family == "encdec" and prefill:
+                n += cfg.encoder_layers * (s("encoder/attn/wo/w")
+                                           + s("encoder/mlp/wd/w"))
+        return n + self.embed_split + self.head_split
 
     # ------------------------------------------------------- parameters
     def place(self, path: str, t: torch.Tensor) -> torch.Tensor:
         """This rank's slice of one whole parameter (a copy of its own
         where it is split, so the whole tensor can be freed)."""
+        if self._columns and _PACKED.search(path):
+            cols = self._columns["conv_w" if path.endswith("conv_w")
+                                 else "in_proj"]
+            return t.index_select(-1, cols.to(t.device))
         return local_copy(t, leaf_at(self.specs, path), self.mesh)
 
     def shard(self, params: dict) -> dict:
@@ -116,6 +219,19 @@ class TensorParallel:
         x = x.contiguous()
         dist.all_reduce(x, group=self.group)
         self.all_reduces += 1
+        return x
+
+    def reduce(self, x: torch.Tensor, path: str) -> torch.Tensor:
+        """``x``, the output of the projection at ``path``, summed over
+        the ranks when that projection is split by rows (a partial sum
+        on each), else as it is."""
+        return self.all_reduce(x) if self.split(path) else x
+
+    def broadcast(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as the model axis's first rank holds it, in place on
+        every rank of the axis."""
+        dist.broadcast(x, src=self.mesh.rank - self.index, group=self.group)
+        self.broadcasts += 1
         return x
 
     def tokens_agree(self, tokens: torch.Tensor) -> torch.Tensor:

@@ -52,10 +52,15 @@ def wkv_chunked(r, k, v, logw, u, *, chunk: int, init_state=None):
 
 
 def rwkv_time_apply(p: Params, cfg, x: torch.Tensor, *, state=None,
-                    shift=None, decode: bool = False):
-    """Returns (y, (state, shift_carry))."""
+                    shift=None, decode: bool = False,
+                    heads: int | None = None):
+    """Returns (y, (state, shift_carry)).  ``heads``: the heads this call
+    runs (a tensor-parallel rank's, whose ``wr``..``ww`` columns, ``u``
+    and ``w_bias`` it holds; ``wo``'s output is then its partial sum);
+    all of them when None."""
     nh, hd = rwkv_dims(cfg)
-    B, S, d = x.shape
+    nh = heads or nh
+    B, S, _ = x.shape
     prev, new_shift = _token_shift(x, shift)
     mix = p["mix"].to(x.dtype)
     xr = x + (prev - x) * mix[0]
@@ -91,18 +96,24 @@ def rwkv_time_apply(p: Params, cfg, x: torch.Tensor, *, state=None,
     else:
         y, new_state = wkv_chunked(r, k, v, logw, p["u"],
                                    chunk=cfg.ssd_chunk, init_state=state)
-    y = y.reshape(B, S, d).to(x.dtype) * g
+    y = y.reshape(B, S, nh * hd).to(x.dtype) * g
     return dense(p["wo"], y), (new_state, new_shift)
 
 
-def rwkv_channel_apply(p: Params, cfg, x: torch.Tensor, *, shift=None):
+def rwkv_channel_apply(p: Params, cfg, x: torch.Tensor, *, shift=None,
+                       reduce=None):
+    """Returns (y, shift_carry).  ``reduce`` sums the ``wv`` output over
+    tensor-parallel ranks (each holds a share of d_ff) before the
+    receptance gates it."""
     prev, new_shift = _token_shift(x, shift)
     mix = p["mix"].to(x.dtype)
     xk = x + (prev - x) * mix[0]
     xr = x + (prev - x) * mix[1]
     k = torch.square(torch.relu(dense(p["wk"], xk)))
-    return (torch.sigmoid(dense(p["wr"], xr))
-            * dense(p["wv"], k)), new_shift
+    v = dense(p["wv"], k)
+    if reduce is not None:
+        v = reduce(v)
+    return torch.sigmoid(dense(p["wr"], xr)) * v, new_shift
 
 
 def rwkv_time_ref(p: Params, cfg, x: torch.Tensor):

@@ -43,8 +43,7 @@ def _causal_conv(xs: torch.Tensor, w: torch.Tensor,
     return F.silu(y), new_state
 
 
-def _split_proj(cfg, zxbcdt):
-    d_inner, nh, hd, ns = ssm_dims(cfg)
+def _split_proj(zxbcdt, d_inner: int, ns: int, nh: int):
     z, x, Bm, Cm, dt = torch.split(
         zxbcdt, [d_inner, d_inner, ns, ns, nh], dim=-1)
     return z, x, Bm, Cm, dt
@@ -70,12 +69,19 @@ def ssd_chunked(xh, dt, a_log, Bm, Cm, D, *, chunk: int,
 
 
 def ssm_apply(p: Params, cfg, x: torch.Tensor, *, state=None,
-              conv_state=None, decode: bool = False):
-    """x: (B,S,d_model).  Returns (y, (state, conv_state))."""
-    d_inner, nh, hd, ns = ssm_dims(cfg)
+              conv_state=None, decode: bool = False,
+              heads: int | None = None):
+    """x: (B,S,d_model).  Returns (y, (state, conv_state)).  ``heads``:
+    the heads this call runs (a tensor-parallel rank's, whose
+    [z, x, B, C, dt] columns of ``in_proj``, [x, B, C] of ``conv_w``,
+    ``A_log``, ``D``, ``dt_bias`` and ``out_proj`` rows it holds; the
+    output is then its partial sum); all of them when None."""
+    _, nh, hd, ns = ssm_dims(cfg)
+    nh = heads or nh
+    d_inner = nh * hd
     f32 = torch.float32
     zxbcdt = dense(p["in_proj"], x)
-    z, xs, Bm, Cm, dt = _split_proj(cfg, zxbcdt)
+    z, xs, Bm, Cm, dt = _split_proj(zxbcdt, d_inner, ns, nh)
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)
     conv_out, new_conv = _causal_conv(conv_in, p["conv_w"], conv_state)
     xs, Bm, Cm = torch.split(conv_out, [d_inner, ns, ns], dim=-1)

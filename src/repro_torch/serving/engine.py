@@ -24,10 +24,12 @@ the same host loop on its shard; every rank holds the full logits after
 their gather, so greedy and seeded sampling pick the same token on each,
 and each step checks that they do with one all_reduce of the step's
 tokens.  Rank 0 prewarms the plan store first; the other ranks wait for
-it and then read the plans of the same (local) shapes from it.
+it and then read the plans of the same (local) shapes from it
+(``rank_zero_first``, which the scheduler's prewarm takes too).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 
@@ -140,7 +142,10 @@ class Engine:
         produced after consuming input tokens 0..j (held in fp32; in
         bf16 on the card the window's batched products may round
         otherwise), so accepting drafts while they match ``greedy``
-        keeps the emitted stream that of target-only decoding."""
+        keeps the emitted stream that of target-only decoding.  On a
+        tensor-parallel engine the ranks' tokens and flags are checked
+        to agree (one all_reduce), and every rank raises where they do
+        not."""
         tokens = torch.as_tensor(tokens, device=self.device).long()
         positions = torch.as_tensor(positions, device=self.device).long()
         logits, cache = self.model.decode_step(self.params, cache, tokens,
@@ -149,6 +154,9 @@ class Engine:
         greedy = torch.argmax(torch.where(ok, logits, -torch.inf), dim=-1)
         both = torch.cat([greedy, ok.all(dim=-1).all(dim=-1,
                                                       keepdim=True)], 1)
+        tp = self.model.tp
+        if tp is not None:
+            _check_agree(tp.tokens_agree(both.flatten()))
         both = both.cpu().numpy()
         return both[:, :-1].astype(np.int32), both[:, -1].astype(bool), cache
 
@@ -200,13 +208,22 @@ class Engine:
         model, so the shapes are the local ones; rank 0 plans them into
         the store before the other ranks, which then read them (so no
         two ranks put the same plan at once)."""
+        with self.rank_zero_first():
+            return self._prewarm_plans(arch_id, batch, prompt_len,
+                                       dtype_bytes=dtype_bytes,
+                                       source=source)
+
+    @contextlib.contextmanager
+    def rank_zero_first(self):
+        """On a tensor-parallel engine, the body runs on rank 0 before it
+        runs on the other ranks (a barrier between): a prewarm that plans
+        into the shared store on rank 0 and reads from it on the others.
+        On one device, the body as it is."""
         mesh = self.mesh
         if mesh is not None and mesh.rank != 0:
             mesh.barrier()
         try:
-            return self._prewarm_plans(arch_id, batch, prompt_len,
-                                       dtype_bytes=dtype_bytes,
-                                       source=source)
+            yield
         finally:
             if mesh is not None and mesh.rank == 0:
                 mesh.barrier()
@@ -295,9 +312,11 @@ class Engine:
         """Plan an explicit (M, N, K) shape list through the installed
         store's *sharded* section: each shape gets a joint (mesh
         partition, per-chip tiling) plan for an ``n_chips`` mesh (see
-        dist.mesh_solve), under the H100 dispatch identity.  Serving on a
-        mesh is not ported yet (ROADMAP A13); the plans are the
-        deployment artifact it will read.
+        dist.mesh_solve), under the H100 dispatch identity: the
+        deployment artifact of the reference's GSPMD mesh.  The port's
+        tensor-parallel ranks plan their local shapes through the
+        ordinary read-through instead (``prewarm_plans``,
+        ``rank_zero_first``).
 
         Requires a store: with none installed this is a counted no-op.
         Best-effort per shape; failures count under

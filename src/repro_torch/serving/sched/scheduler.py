@@ -66,15 +66,33 @@ Where the port differs from the reference:
   decode), so the verify steps resolve every plan from the prewarm.  A
   replica built with the router's ``plan_groups`` / ``chain_groups``
   skips the prewarm and resolves from the donor's.  ``mesh_chips > 1``
-  prewarms the store's sharded section; serving itself runs on one device
-  (a mesh is ROADMAP A13).  Every ``SchedConfig`` field is kept with its
-  default, and every setting is taken (``UNPORTED`` is empty).
+  prewarms the store's sharded section, as in the reference.  Every
+  ``SchedConfig`` field is kept with its default, and every setting is
+  taken (``UNPORTED`` is empty).
+- A tensor-parallel engine (``dist.serve.shard_engine``): every rank runs
+  a scheduler over its own shard, and the collectives inside each pass
+  need every rank to run the same pass in the same tick.  The reference
+  is one controller; here the model axis's first rank ("rank 0")
+  decides.  Once a tick it broadcasts its orders (``TickOrders``): its
+  clock reading, which the deadline sweep of every rank reads, the
+  request it admits and the slot it gives it, and its queue's and
+  slots' state.  The other ranks apply them, and raise where their
+  state does not match rank 0's (the run then exits non-zero on every
+  rank, at the next collective at the latest).  Chunks, decode rows
+  and evictions follow from that state and from the sampled tokens,
+  which every decode, verify and activation checks across the ranks
+  (``TensorParallel.tokens_agree``, finite flags included).  Trace time
+  comes from ``tp.RankClock``, which folds rank 0's measured tick time
+  into every rank's clock.  The prewarm runs on rank 0 before the other
+  ranks, which then read its plans from the store
+  (``Engine.rank_zero_first``).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import logging
+import struct
 import time
 from typing import Callable
 
@@ -194,6 +212,35 @@ class _Prefill:
     padded: np.ndarray                   # (1, padded_len) prompt buffer
 
 
+@dataclasses.dataclass(frozen=True)
+class TickOrders:
+    """What rank 0 of a tensor-parallel engine decides for one tick, as
+    it broadcasts it (one int64 tensor, ``now`` as its float64 bits):
+    the clock reading of the tick's deadline sweep, the state it decided
+    from (the queue's length and request ids' sum, the in-flight
+    prefill's request, a checksum of the busy slots and their requests),
+    and the request it admits (-1: none) into which slot."""
+
+    now: float
+    queued: int
+    queue_ids: int
+    prefill: int
+    busy: int
+    admit: int
+    slot: int
+
+    def encode(self) -> torch.Tensor:
+        now, *rest = dataclasses.astuple(self)
+        return torch.tensor(
+            [struct.unpack("<q", struct.pack("<d", now))[0], *rest],
+            dtype=torch.int64)
+
+    @classmethod
+    def decode(cls, t: torch.Tensor) -> "TickOrders":
+        v = [int(x) for x in t.tolist()]
+        return cls(struct.unpack("<d", struct.pack("<q", v[0]))[0], *v[1:])
+
+
 class ContinuousScheduler:
     def __init__(self, engine: Engine, cfg: SchedConfig, *,
                  arch_id: str | None = None,
@@ -206,11 +253,6 @@ class ContinuousScheduler:
                  plan_groups: dict | None = None,
                  chain_groups: dict | None = None):
         ensure_supported_family(engine.model.cfg)
-        if getattr(engine, "mesh", None) is not None:
-            raise NotImplementedError(
-                "the scheduler on a tensor-parallel engine is not ported "
-                "yet: every rank would need the same admission decisions "
-                "(ROADMAP A13, its remainder)")
         kw = dict(arch_id=arch_id, plan_groups=plan_groups,
                   plan_store=engine.plan_store)
         for what, is_set, item in UNPORTED:
@@ -219,6 +261,9 @@ class ContinuousScheduler:
                     f"{what} is not ported yet: ROADMAP {item}")
         self.engine = engine
         self.cfg = cfg
+        # the tensor-parallel layout of a sharded engine: its rank 0
+        # decides each tick (TickOrders)
+        self._tp = engine.model.tp
         # optional KV prefix cache (serving.router.prefix): admission
         # grafts cached rows for a shared prompt prefix instead of
         # re-prefilling them
@@ -294,7 +339,8 @@ class ContinuousScheduler:
             self._chain_groups = dict(chain_groups or {})
         elif arch_id is not None or (cfg.prewarm_source == "capture"
                                      and engine.plan_store is not None):
-            self.prewarmed_plans = self._prewarm(arch_id)
+            with engine.rank_zero_first():
+                self.prewarmed_plans = self._prewarm(arch_id)
 
     # ------------------------------------------------------------ plan DB
     def _prewarm(self, arch_id: str | None) -> int:
@@ -500,6 +546,10 @@ class ContinuousScheduler:
             return req.arrival_s + self.cfg.default_deadline_s
         return None
 
+    def _expired(self, req: Request, now: float) -> bool:
+        dl = self._deadline_of(req)
+        return dl is not None and now > dl
+
     def _expire_queue(self, now: float) -> None:
         """Drop queued requests whose deadline already passed — serving
         them would waste prefill on an answer nobody is waiting for.
@@ -509,8 +559,7 @@ class ContinuousScheduler:
             return
         keep: collections.deque[Request] = collections.deque()
         for req in self.queue:
-            dl = self._deadline_of(req)
-            if dl is not None and now > dl:
+            if self._expired(req, now):
                 _REG.inc("degraded.sched.expired")
                 self._finish_unstarted(req, RequestState.EXPIRED, now)
             else:
@@ -535,6 +584,67 @@ class ContinuousScheduler:
     def busy(self) -> bool:
         return bool(self.queue) or self._prefill is not None or \
             self.slots.n_busy > 0
+
+    def state_of(self, slot: Slot) -> RequestState:
+        if slot.free:
+            return RequestState.FINISHED
+        if self._prefill is not None and self._prefill.slot is slot:
+            return RequestState.PREFILLING
+        return RequestState.ACTIVE
+
+    # ---------------------------------------------- tensor-parallel ticks
+    def _orders(self, now: float) -> TickOrders:
+        """This rank's decision for the tick at clock reading ``now``, from
+        its state: the admission (the oldest request that survives the
+        deadline sweep, into the slot the free list gives next)."""
+        admit = slot = -1
+        if self._prefill is None and self.slots.n_free:
+            req = next((r for r in self.queue
+                        if not self._expired(r, now)), None)
+            if req is not None:
+                admit, slot = req.req_id, self.slots._free[-1]
+        return TickOrders(
+            now=now, queued=len(self.queue),
+            queue_ids=sum(r.req_id for r in self.queue),
+            prefill=(-1 if self._prefill is None
+                     else self._prefill.slot.req.req_id),
+            busy=sum((s.idx + 1) * (s.req.req_id + 2)
+                     for s in self.slots.busy()),
+            admit=admit, slot=slot)
+
+    def _rank0_orders(self, now: float) -> TickOrders:
+        """The tick's orders of the model axis's first rank, broadcast to
+        every rank of the axis (one int64 tensor), after checking that
+        this rank's state is the one rank 0 decided from (so that its
+        deadline sweep at rank 0's reading drops the same requests)."""
+        orders = TickOrders.decode(
+            self._tp.broadcast(self._orders(now).encode()))
+        mine = self._orders(orders.now)
+        state = ("queued", "queue_ids", "prefill", "busy")
+        if any(getattr(mine, f) != getattr(orders, f) for f in state):
+            raise RuntimeError(
+                f"a tensor-parallel rank's scheduler state "
+                f"{ {f: getattr(mine, f) for f in state} } is not rank "
+                f"0's { {f: getattr(orders, f) for f in state} }")
+        return orders
+
+    def _admit(self, orders: TickOrders | None) -> tuple | None:
+        """The (request, slot) this tick admits: the oldest queued request
+        into the free list's next slot, or, on a tensor-parallel engine,
+        rank 0's request into rank 0's slot; None when nothing is
+        admitted."""
+        if orders is None:
+            if self._prefill is None and self.queue and self.slots.n_free:
+                req = self.queue.popleft()
+                return req, self.slots.acquire(req)
+            return None
+        if orders.admit < 0:
+            return None
+        req = next(r for r in self.queue if r.req_id == orders.admit)
+        self.queue.remove(req)
+        free = self.slots._free
+        free.append(free.pop(free.index(orders.slot)))
+        return req, self.slots.acquire(req)
 
     # ------------------------------------------------------------ stepping
     def step(self) -> None:
@@ -572,13 +682,17 @@ class ContinuousScheduler:
         #                                 has something real to catch
 
         # 0. deadline sweep over the queue (before admission, so a
-        # request that expired while waiting never claims a slot)
-        self._expire_queue(self.clock())
+        # request that expired while waiting never claims a slot); on a
+        # tensor-parallel engine at rank 0's clock reading
+        now = self.clock()
+        orders = None if self._tp is None else self._rank0_orders(now)
+        self._expire_queue(now if orders is None else orders.now)
 
-        # 1. admission: start prefilling the oldest queued request
-        if self._prefill is None and self.queue and self.slots.n_free:
-            req = self.queue.popleft()
-            slot = self.slots.acquire(req)
+        # 1. admission: start prefilling the oldest queued request (rank
+        # 0's choice on a tensor-parallel engine)
+        admitted = self._admit(orders)
+        if admitted is not None:
+            req, slot = admitted
             if slot.stop_token is None:     # scheduler default, resolved
                 slot.stop_token = self.cfg.stop_token   # on the slot —
             #                                 the Request is never mutated
@@ -903,6 +1017,10 @@ class ContinuousScheduler:
                 tokens[row] = gumbel_argmax(masked[row],
                                             self.cfg.temperature, gen)
         both = torch.stack([tokens, ok.all(dim=-1).to(torch.int64)])
+        if self._tp is not None and \
+                not bool(self._tp.tokens_agree(both.flatten())):
+            raise RuntimeError("the tensor-parallel ranks sampled different "
+                               "tokens")
         both = both.cpu().numpy()
         return both[0], both[1].astype(bool)
 

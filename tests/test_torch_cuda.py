@@ -273,6 +273,25 @@ def test_cuda_ssd_matches_plain(cuda_device, shape):
 
 
 @pytest.mark.cuda
+def test_cuda_ssd_takes_a_layer_row_of_a_rank_a_log(cuda_device):
+    """A tensor-parallel rank of two heads: a_log is a layer's row of a
+    stacked (layers, 2) tensor, 8 bytes past a 16-byte boundary; B4
+    still launches and matches its plain version."""
+    xh, dt, a_log, Bm, Cm = ssd_inputs(12, 2, 16, 2, 16, 16)
+    stacked = torch.stack([a_log, a_log + 0.1, a_log - 0.1]).to(cuda_device)
+    row = stacked[1]
+    assert row.data_ptr() % 16
+    before = ssd_scan.launches
+    y, st = ssd_scan(*(t.to(cuda_device) for t in (xh, dt)), row,
+                     *(t.to(cuda_device) for t in (Bm, Cm)), chunk=8)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    want_y, want_st = ssd_scan_plain(xh, dt, a_log + 0.1, Bm, Cm, chunk=8)
+    _close_to_scale(y, want_y, SCAN_Y_TOL["f32"])
+    _close_to_scale(st, want_st, 1e-3)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("decay", ["mild", "typical", "strong"])
 def test_cuda_scans_hold_at_every_decay(cuda_device, decay):
     """Both scans at two chunks of 128 against their plain versions and

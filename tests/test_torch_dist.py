@@ -7,7 +7,9 @@
   where the reference's does.
 - A rank's local slice is the block of the whole tensor that its spec
   and mesh coordinates name; the execution layout differs from the rule
-  specs only where the rule cuts inside an attention head (ROADMAP C13).
+  specs only where the rule cuts inside an attention head (ROADMAP C13)
+  and where it splits packed or gating columns of the recurrent mixers
+  (C14), for every family.
 - One subprocess per world size (2 and 4) spawns gloo ranks with a
   ``file://`` rendezvous in a temporary directory and serves the smoke
   configs sharded: greedy tokens equal the single-rank port's and the
@@ -15,8 +17,10 @@
   port's (the all-reduces reassociate the sums), all-reduce counts are
   exact, and there are no solver calls after the prewarm.
 - The mesh's refusals: nccl with fewer cards than ranks, a mesh that does
-  not tile the world; ``shard_engine``'s: the families explicit TP cannot
-  run, FSDP; the scheduler's: a tensor-parallel engine.
+  not tile the world; ``shard_engine``'s: FSDP.
+
+The other families under TP are in ``test_torch_dist_families.py``, the
+scheduler and the router under TP in ``test_torch_dist_sched.py``.
 """
 import dataclasses
 import datetime
@@ -41,7 +45,7 @@ from repro_torch.launch.mesh import HostMesh, make_host_mesh, \
     make_production_mesh
 from repro_torch.models import build_model
 from repro_torch.models.convert import params_from_jax
-from repro_torch.models.parallel import TensorParallel
+from repro_torch.models.parallel import TensorParallel, ssm_columns
 from repro_torch.serving import Engine, ServeConfig
 from repro_torch.sharding import rules
 
@@ -177,33 +181,67 @@ def test_local_slice_is_the_block_the_spec_names(arch, mode):
 
 # the execution layout replicates what the rule splits inside a head:
 # the smoke configs with fewer KV heads than ranks (ROADMAP C13); no full
-# config of the dense and MoE families is among them at 2 or 4 ranks
+# config is among them at 2 or 4 ranks
 C13 = {("llama3-8b", 2), ("llama3-8b", 4), ("yi-34b", 2), ("yi-34b", 4),
-       ("gemma2-27b", 4), ("granite-moe-1b-a400m", 4)}
-TP_FAMILIES = [a for a, c in ARCHS.items() if c.family in ("dense", "moe")]
+       ("gemma2-27b", 4), ("granite-moe-1b-a400m", 4),
+       ("llava-next-34b", 2), ("llava-next-34b", 4)}
+# ... and, in the recurrent mixers (ROADMAP C14), replicates the RWKV
+# channel mix's gate, and the time mix where the ranks cut inside its
+# heads of 64 (rwkv6-7b smoke's 2 heads at TP 4), and relays the time
+# mix's decay bias (rule: replicated) by heads and the Mamba2 packed
+# columns by [z_r, x_r, B, C, dt_r] and [x_r, B, C]
+TIME_MIX = [f"layers/time/w{w}/w" for w in "gkorvw"]
+C14 = {"rwkv6-7b": (["layers/chan/wr/w"], ["layers/time/w_bias"]),
+       "zamba2-2.7b": ([], ["layers/ssm/conv_w", "layers/ssm/in_proj/w"])}
+C14_SMOKE_TP4 = {"rwkv6-7b": (["layers/chan/wr/w"] + TIME_MIX, [])}
+# the cache leaves C14 lays out otherwise than ``cache_spec``: the RWKV
+# token-shift carries stay whole, the Mamba2 conv carry holds [x_r, B, C]
+CACHE_C14 = {"tshift", "cshift", "conv"}
 
 
-@pytest.mark.parametrize("arch", TP_FAMILIES)
+def _leaves_of(tree: dict) -> dict:
+    return dict(rules.flatten_with_paths(tree))
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
 def test_execution_layout_differs_from_the_rules_only_at_c13(arch):
+    """Every family: the execution layout's replicated and relaid
+    parameters are C13's and C14's and no others, and every cache leaf
+    is ``cache_spec``'s local block but where C13 replicates the KV
+    heads or C14 keeps a carry whole or relaid."""
     for smoke in (False, True):
         model = build_model(get_config(arch, smoke=smoke))
         for tp in (2, 4):
             for rank in range(tp):
-                layout = TensorParallel(model, _mesh(1, tp, rank))
+                mesh = _mesh(1, tp, rank)
+                layout = TensorParallel(model, mesh)
                 want = (["layers/attn/wk/w", "layers/attn/wv/w"]
-                        if smoke and (arch, tp) in C13 else [])
-                assert layout.replicated == want, (arch, smoke, tp)
-                cache = model.__class__(model.cfg, tp=layout).init_cache(
-                    2, 8, device="meta")
-                whole = model.init_cache(2, 8, device="meta")
-                for key in ("k", "v"):
-                    spec = rules.cache_spec(f"layers/{key}",
-                                            tuple(whole["layers"][key].shape),
-                                            _mesh(1, tp, rank))
-                    if layout.replicated:
+                        if smoke and (arch, tp) in C13 else [], [])
+                if arch in C14:
+                    want = (C14_SMOKE_TP4 if smoke and tp == 4
+                            else C14).get(arch, C14[arch])
+                assert (layout.replicated, layout.relaid) == want, \
+                    (arch, smoke, tp)
+                cache = _leaves_of(model.__class__(
+                    model.cfg, tp=layout).init_cache(2, 8, device="meta"))
+                whole = _leaves_of(model.init_cache(2, 8, device="meta"))
+                for path, t in whole.items():
+                    spec = rules.cache_spec(path, tuple(t.shape), mesh)
+                    leaf = path.rsplit("/", 1)[-1]
+                    if leaf in ("k", "v") and layout.replicated \
+                            and arch not in C14:
                         spec = rules.P()
-                    assert cache["layers"][key].shape == rules.local_slice(
-                        whole["layers"][key], spec, _mesh(1, tp, rank)).shape
+                    if leaf in CACHE_C14:
+                        continue
+                    assert cache[path].shape == rules.local_slice(
+                        t, spec, mesh).shape, (arch, smoke, tp, path)
+                for path in set(whole) & set(cache):
+                    leaf = path.rsplit("/", 1)[-1]
+                    if leaf in ("tshift", "cshift"):
+                        assert cache[path].shape == whole[path].shape
+                    if leaf == "conv":
+                        cols = ssm_columns(model.cfg, rank, tp)["conv_w"]
+                        assert cache[path].shape[-1] == len(cols)
 
 
 # ------------------------------------------------------ served on ranks
@@ -358,31 +396,38 @@ def test_make_host_mesh_needs_a_process_group():
         make_host_mesh(model=1)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-2.7b",
-                                  "seamless-m4t-medium", "llava-next-34b"])
-def test_shard_engine_refuses_families_explicit_tp_cannot_run(one_rank,
-                                                               arch):
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_shard_engine_takes_every_family(one_rank, arch):
+    """Every config, sharded on a one-rank mesh, keeps its whole
+    parameters and serves its single-device tokens."""
     from repro_torch.dist.serve import shard_engine
+    from repro_torch.sharding.rules import flatten_with_paths
     model = build_model(get_config(arch, smoke=True))
-    eng = Engine(model, model.init_params(torch.Generator(), "cpu"),
-                 ServeConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        shard_engine(eng, model_axis=1)
-    assert eng.model is model
+    params = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    prompts = np.zeros((1, 4), np.int32)
+    extra = None
+    if model.cfg.frontend:
+        key = "patches" if model.cfg.family == "vlm" else "frames"
+        extra = {key: np.zeros((1, model.cfg.frontend_len,
+                                model.cfg.d_model), np.float32)}
+    scfg = ServeConfig(max_new_tokens=3, cache_len=16)
+    want = Engine(model, params, scfg).generate(prompts, extra_batch=extra)
+    eng = Engine(model, params, scfg)
+    mesh = shard_engine(eng, model_axis=1)
+    assert eng.mesh is mesh and model.tp is None
+    assert all(a.shape == b.shape for (_, a), (_, b) in zip(
+        flatten_with_paths(eng.params), flatten_with_paths(params)))
+    assert np.array_equal(eng.generate(prompts, extra_batch=extra), want)
 
 
-def test_shard_engine_refuses_fsdp_and_the_scheduler_refuses_tp(one_rank):
+def test_shard_engine_refuses_fsdp(one_rank):
     from repro_torch.dist.serve import shard_engine
-    from repro_torch.serving.sched import ContinuousScheduler, SchedConfig
     model = build_model(get_config("llama3-8b", smoke=True))
     eng = Engine(model, model.init_params(torch.Generator(), "cpu"),
                  ServeConfig())
     with pytest.raises(NotImplementedError, match="ROADMAP A14"):
         shard_engine(eng, model_axis=1, mode="fsdp")
-    mesh = shard_engine(eng, model_axis=1)
-    assert eng.mesh is mesh and model.tp is None
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        ContinuousScheduler(eng, SchedConfig(slots=2, chunk_widths=(4,)))
+    assert eng.model is model
 
 
 def _serve_smoke(*args: str) -> subprocess.CompletedProcess:
