@@ -49,8 +49,8 @@ one's launch counts:
   windows on alternate layers, softcaps), ``llava-next-34b`` (a prefix
   of patches) and ``seamless-m4t-medium`` (encoder, cross-attention)
   smoke configs, card == CPU, and gemma2's behind the scheduler; at
-  full width gemma2-27b statically (prompts past its window, 9 key
-  blocks) and behind the scheduler from an enumerated prewarm, B1 and
+  full width gemma2-27b (8 of its 46 layers) statically (prompts past
+  its window, 9 key blocks) and behind the scheduler from an enumerated prewarm, B1 and
   ``goma_combine`` with exact counts at phase-3 shapes, 0 solver calls;
   llava-next-34b statically behind 2880 patches (B1, ``goma_combine``);
   seamless-m4t-medium statically (no GOMA kernel); the fp32 gates at 4
@@ -72,13 +72,28 @@ one's launch counts:
   the fused MLP on and off, deepseek-moe-16b) card == CPU == one rank's
   scheduler == the static oracle, 0 solver calls after rank 0's
   prewarm; at TP 2 a router of 2 replicas == the one-rank router, phase
-  11's deployment at full width from rank 0's capture prewarm (0 solver
+  11's deployment at full width and 8 layers from rank 0's capture
+  prewarm (0 solver
   calls and store misses, B1 and ``goma_combine`` with exact counts at
   the per-rank chunk and slot shapes phase 3 holds, the same streams on
   every rank, the fp32 gate at 4 layers against one rank's
   teacher-forced prefills), and ``rwkv6-7b`` and ``zamba2-2.7b`` at full
   width (B3 at 32 and B4 at 40 heads a rank, B1 at zamba2's per-rank
-  MLP, exact launches and all-reduces, the fp32 kernel-vs-plain gates).
+  MLP, exact launches and all-reduces, the fp32 kernel-vs-plain gates);
+- training (phase 20): every smoke config of the catalog, fp32, three
+  AdamW steps on the card == the CPU's, its loss without grad through
+  the kernels (B2, B3, B4) == the plain loss, and under grad the kernel
+  path refusing on the card as on the CPU; ``stablelm-1.6b`` at full
+  width (fp32 masters, bf16 compute, full remat, batch 8 x 512) for 20
+  steps through ``run_training`` (finite, descending; step time,
+  tokens/s, peak memory, stragglers, a profiled step's idle share), its
+  loss without grad through B1 and ``goma_combine`` at phase-3 shapes
+  and the fp32 gate at 4 layers; exact resume (6 steps == 3, a
+  checkpoint, a restore, 3; bitwise) on the llama3-8b smoke config and
+  stablelm-1.6b at 2 layers; 2 data-parallel gloo ranks at 4 layers,
+  the exact mean (ranks bitwise equal, losses == one rank's) and the
+  int8 error-feedback all-reduce (loss gap, bytes, seconds inside
+  ``all_reduce``).
 
 Imports nothing of JAX and nothing of the reference package.
 
@@ -91,8 +106,10 @@ device time by kernel and the device's busy and idle shares go to
 ``DIR/profile_serve.{json,txt}`` (llama3-8b),
 ``DIR/profile_serve_rwkv.{json,txt}`` and
 ``DIR/profile_serve_zamba2.{json,txt}``, and one more scheduler replay
-to ``DIR/profile_sched.{json,txt}``; phase 13's profiled MoE replay
-(device only) goes to ``DIR/profile_sched_moe.{json,txt}``, phase 17's
+to ``DIR/profile_sched.{json,txt}``, after phase 11's bf16 streams'
+agreement with the static oracle and its witnesses are reported; phase
+13's profiled MoE replay (device only) goes to
+``DIR/profile_sched_moe.{json,txt}``, phase 17's
 profiled generates to ``DIR/profile_serve_<arch>.{json,txt}``.  Any
 failed phase raises and ends the script with a non-zero code; without a
 CUDA card it prints no result.
@@ -171,6 +188,11 @@ SERVED_MLPS = {
 # widths 4 and 16, cache 96
 SCHED_SMOKE = dict(requests=8, stop=7, new_tokens=12, slots=3,
                    chunk_widths=(4, 16), cache_len=96)
+# phase 14's fleet with a replica killed mid-trace keeps its clocks in
+# ticks of this many virtual seconds (tick_clocks): against the prefix
+# trace's arrivals (34-267 ms) the 6th tick kills replica 0 with two
+# requests to fail over and one in a decode slot, evicted as errored
+TICK_CLOCK_S = 0.02
 # the scans against their plain versions: the reference's tolerances
 # (tests/test_kernels.py), relative to the plain version's largest
 # magnitude: y 1e-4 (bf16 y 5e-2), state 2e-3 (B3) and 1e-3 (B4)
@@ -259,6 +281,10 @@ CATALOG_SMOKE_ROWS = (FULL["batch"] * CATALOG_SMOKE["gemma2_prompt"],
 # batch of 2 prompts of 4160 tokens, past the local layers' window of
 # 4096, and 8 new tokens in a cache of 4176 (9 key blocks of 512) ...
 GEMMA2_FULL = dict(batch=2, prompt_len=4160, new_tokens=8)
+# ... at 8 of its 46 layers (4 local, 4 global), so that the script keeps
+# inside its time limit: the static generate and the scheduler's two
+# replays of the 46 layers took 150-170 s of phase 17
+GEMMA2_LAYERS = 8
 # ... and behind the scheduler: 12 Poisson requests at 8 a second, 10 with
 # prompts of 16-200 tokens and 2 (these ids) of 4150-4200, 16 new tokens,
 # 4 slots, chunks of 8, 32 and 128; a prompt of 4200 pads to 4224
@@ -316,7 +342,11 @@ TP_REST = dict(
     recurrent=(("rwkv6-7b", {"use_pallas_scan": True}),
                ("zamba2-2.7b", {"use_pallas_scan": True,
                                 "fused_mlp": True})),
-    gate_layers={"llama3-8b": 4, "rwkv6-7b": 4, "zamba2-2.7b": 6})
+    gate_layers={"llama3-8b": 4, "rwkv6-7b": 4, "zamba2-2.7b": 6},
+    # phase 11's deployment at full_world runs llama3-8b's full width at 8
+    # of its 32 layers: its capture prewarm and replay of the 32 took
+    # 60-75 s of phase 19
+    deploy_layers=8)
 SERVED_MLPS.update({
     "llama3-8b scheduler TP2": (SERVED_MLPS["llama3-8b scheduler"][0],
                                 14336 // 2, 4096),
@@ -330,6 +360,35 @@ TP_SMOKE_CHAINS = tuple((M, 128 // n) for n in TP_SERVE["worlds"]
                             FULL["batch"], FULL["batch"] * FULL["prompt_len"],
                             SCHED_SMOKE["slots"],
                             *SCHED_SMOKE["chunk_widths"]}))
+
+
+# training (phase 20).  20a: every smoke config of ARCHS, fp32, this many
+# AdamW steps on the card against the CPU from one set of fp32 masters and
+# host_batch's stream (batch x sequence), and the loss without grad
+# through the kernels (the fused MLP, the scans) against the plain loss;
+# 20b: stablelm-1.6b at its published widths (hf stabilityai/stablelm-2-
+# 1_6b: 24 layers, d_model 2048, 32 heads of 64, d_ff 5632, vocab
+# 100352), fp32 masters, bf16 compute, every layer rematerialized, global
+# batch x sequence, lr with a warmup of 10, through run_training without a
+# checkpoint (26 GB at full width); its loss without grad through B1 and
+# goma_combine, whose fp32 gate runs the first gate_layers layers; 20c:
+# exact resume (resume_steps straight == half, save, restore, half) on the
+# llama3-8b smoke config and on stablelm-1.6b at resume_layers layers;
+# 20d: dp_world gloo ranks on the card at dp_layers layers, dp_steps
+# steps, the exact mean and the int8 error-feedback all-reduce, computed
+# in fp32 (in bf16 a rank's half batch rounds otherwise than the whole
+# batch, which would hide the reduction's own error)
+TRAIN = dict(smoke_steps=3, smoke_batch=4, smoke_seq=16,
+             arch="stablelm-1.6b", batch=8, seq=512, steps=20, lr=1e-3,
+             warmup=10, gate_layers=4, resume_steps=6, resume_layers=2,
+             dp_world=2, dp_layers=4, dp_steps=3, dp_dtype="float32")
+# card against CPU (20a) and data-parallel ranks against one rank (20d):
+# losses within this of max(1, |loss|); the same sums in other orders
+TRAIN_TOL = 1e-4
+# the full-width training loss's MLP products (B1) and combine, at the
+# batch x sequence rows, held and timed in phase 3 with cold weights
+SERVED_MLPS["stablelm-1.6b training"] = (
+    (TRAIN["batch"] * TRAIN["seq"],), 5632, 2048)
 
 
 @contextlib.contextmanager
@@ -1269,6 +1328,32 @@ def replay_trace(eng, reqs, arch_id=None, prefix_cache=None, drafter=None,
     return sched, {r.req_id: (r.tokens, r.finish_reason) for r in results}
 
 
+@contextlib.contextmanager
+def tick_clocks():
+    """Routers built inside run on virtual clocks that charge each
+    scheduler tick TICK_CLOCK_S and read no wall time, so which replica
+    the router steps, and which it kills, is the same on every device and
+    in every run."""
+    from repro_torch.serving.sched import TraceClock
+    router_mod = sys.modules["repro_torch.serving.router.router"]
+
+    class TickClock(TraceClock):
+        def now(self) -> float:
+            return self._t
+
+        def pin(self) -> None:
+            pass
+
+        def release(self) -> None:
+            self.advance(TICK_CLOCK_S)
+
+    router_mod.TraceClock = TickClock
+    try:
+        yield
+    finally:
+        router_mod.TraceClock = TraceClock
+
+
 def oracle_tokens(eng, req) -> list[int]:
     """The request alone through the static Engine.generate, trimmed to
     what the scheduler delivers (up to its first stop token)."""
@@ -1407,21 +1492,56 @@ def sched_full_trace(vocab: int) -> list:
         max_new_tokens=SCHED_FULL["new_tokens"], vocab=vocab, seed=SEED))
 
 
+def sched_full_witnesses(model, params, scfg, knobs, trace,
+                         streams) -> tuple[dict, dict]:
+    """Where sched_full's bf16 streams part from the static oracle's
+    (reported, not held: bf16 rounding flips, see PATH_TOL), and as
+    witnesses, the same trace at one slot against the oracle (chunked
+    against whole-prompt prefill) and against the 8-slot streams (a
+    decode of 8 rows against one of 1)."""
+    from repro_torch.serving import Engine, ServeConfig
+    t0 = time.perf_counter()
+    oracle = Engine(model, params, ServeConfig(
+        cache_len=SCHED_FULL["cache_len"]))
+    static = {req.req_id: oracle_tokens(oracle, req) for req in trace}
+    _, alone = replay_trace(Engine(model, params, scfg), trace,
+                            **{**knobs, "slots": 1})
+
+    def agreement(got: dict, want: dict) -> dict:
+        out = {}
+        for rid, w in want.items():
+            same = [a == b for a, b in zip(got[rid], w)]
+            out[rid] = {"equal": sum(same), "of": len(w),
+                        "leading": (same + [False]).index(False)}
+        return out
+
+    eight = {rid: t for rid, (t, _) in streams.items()}
+    one = {rid: t for rid, (t, _) in alone.items()}
+    agree = agreement(eight, static)
+    witness = {"one_slot_vs_static": agreement(one, static),
+               "eight_slots_vs_one_slot": agreement(eight, one)}
+    for name, agr in {"static bf16 oracle": agree, **witness}.items():
+        parted = {rid: a["leading"] for rid, a in agr.items()
+                  if a["equal"] != a["of"]}
+        print(f"  token agreement, {name} (reported, not held): "
+              f"{len(agr) - len(parted)} of {len(agr)} streams equal; the "
+              f"others' leading equal tokens: {parted}")
+    print(f"  (static oracle and witnesses "
+          f"{time.perf_counter() - t0:.1f} s)")
+    return agree, witness
+
+
 def sched_full(smi: str, out: pathlib.Path | None, checked: set) -> dict:
     """The continuous scheduler at llama3-8b's full width, bf16, fused
     MLP on (the chains do not fuse: every MLP is three B1 launches and a
     goma_combine), random weights made on the card: SCHED_FULL's trace
     with exact launch counts, every launch at a shape phase 3 held, and
-    finite logits; a second replay, timed, with zero solver calls; each
-    request's token agreement with the static bf16 oracle (reported: bf16
-    rounding flips, see PATH_TOL), and as witnesses of where the streams
-    part, the same trace at one slot against the oracle (chunked against
-    whole-prompt prefill) and against the 8-slot streams (a decode of 8
-    rows against one of 1).  Then, with the weights in fp32, the whole
-    trace again: every emitted token's logits row within PATH_TOL of
-    scale of the teacher-forced static prefill of prompt + emitted tokens
-    at B=1, with slots reused.  With ``out``, one more bf16 replay runs
-    under the profiler."""
+    finite logits; a second replay, timed, with zero solver calls.  Then,
+    with the weights in fp32, the whole trace again: every emitted
+    token's logits row within PATH_TOL of scale of the teacher-forced
+    static prefill of prompt + emitted tokens at B=1, with slots reused.
+    With ``out``, sched_full_witnesses reports the bf16 streams' token
+    agreement, and one more bf16 replay runs under the profiler."""
     from repro_torch.configs import get_config
     from repro_torch.core.solver import reset_solver_stats, solver_stats
     from repro_torch.models import build_model
@@ -1474,27 +1594,6 @@ def sched_full(smi: str, out: pathlib.Path | None, checked: set) -> dict:
         raise AssertionError(f"the timed replay made {solves} solver calls "
                              f"or gave other streams")
     summ = sched.metrics.summary()
-    t0 = time.perf_counter()
-    oracle = Engine(model, params, ServeConfig(
-        cache_len=SCHED_FULL["cache_len"]))
-    static = {req.req_id: oracle_tokens(oracle, req) for req in trace}
-    _, alone = replay_trace(Engine(model, params, scfg), trace,
-                            **{**knobs, "slots": 1})
-
-    def agreement(got: dict, want: dict) -> dict:
-        out = {}
-        for rid, w in want.items():
-            same = [a == b for a, b in zip(got[rid], w)]
-            out[rid] = {"equal": sum(same), "of": len(w),
-                        "leading": (same + [False]).index(False)}
-        return out
-
-    eight = {rid: t for rid, (t, _) in streams.items()}
-    agree = agreement(eight, static)
-    witness = {"one_slot_vs_static": agreement(
-                   {rid: t for rid, (t, _) in alone.items()}, static),
-               "eight_slots_vs_one_slot": agreement(
-                   eight, {rid: t for rid, (t, _) in alone.items()})}
     print(f"  streams: {streams}")
     print(f"  forward passes {passes} ({chunks} prefill chunks, {ticks} "
           f"decode ticks), launches {counts}")
@@ -1505,18 +1604,13 @@ def sched_full(smi: str, out: pathlib.Path | None, checked: set) -> dict:
           f"{summ['tpot_p50_s']} s, mean slot occupancy "
           f"{summ['mean_slot_occupancy']}, ticks {summ['steps']}, peak "
           f"memory {peak} GiB, solver calls {solves}")
-    for name, agr in {"static bf16 oracle": agree, **witness}.items():
-        parted = {rid: a["leading"] for rid, a in agr.items()
-                  if a["equal"] != a["of"]}
-        print(f"  token agreement, {name} (reported, not held): "
-              f"{len(agr) - len(parted)} of {len(agr)} streams equal; the "
-              f"others' leading equal tokens: {parted}")
-    print(f"  (static oracle and witnesses "
-          f"{time.perf_counter() - t0:.1f} s)")
+    agree = witness = None
     if out is not None:
+        agree, witness = sched_full_witnesses(model, params, scfg, knobs,
+                                              trace, streams)
         profile_run(lambda: replay_trace(Engine(model, params, scfg), trace,
                                          **knobs), smi, out, "profile_sched")
-    del eng, sched, oracle
+    del eng, sched
 
     # fp32: the same weights, the same path, the same trace
     t0 = time.perf_counter()
@@ -1999,8 +2093,8 @@ def scaleout_paths(model, params, dparams, prompts, reqs, prefix_reqs,
     (``dparams``), the scheduler at SPEC_SMOKE's window width with the
     n-gram drafter, the prefix trace through a PrefixCache, two replicas
     with prefix cache and spec, two replicas with one killed mid-trace
-    (router.replica_down), and with ``store_dir`` two replicas planned
-    from a fresh store by the donor's prewarm alone (solver calls and
+    (router.replica_down) on tick_clocks, and with ``store_dir`` two
+    replicas planned from a fresh store by the donor's prewarm alone (solver calls and
     store misses of the replay).  Returns the streams by path."""
     from repro_torch.core.solver import reset_solver_stats, solver_stats
     from repro_torch.faults import FaultInjector, FaultSpec, set_injector
@@ -2045,10 +2139,15 @@ def scaleout_paths(model, params, dparams, prompts, reqs, prefix_reqs,
                         for r in router.route_trace(prefix_reqs)}
 
     _, out["router"] = fleet(eng)
+    # the victim is the replica whose clock lags at the 6th tick, and its
+    # casualties are the requests in its decode slots then: on clocks that
+    # fold in wall time both depend on the device's and the host's speed,
+    # so this fleet's clocks charge every tick TICK_CLOCK_S instead
     set_injector(FaultInjector([FaultSpec("router.replica_down", at=(6,))],
                                seed=0))
     try:
-        router, out["router replica_down"] = fleet(eng)
+        with tick_clocks():
+            router, out["router replica_down"] = fleet(eng)
     finally:
         set_injector(None)
     out["alive after replica_down"] = sum(router.alive)
@@ -2154,9 +2253,11 @@ def scaleout_smoke(checked: set, store_dir: pathlib.Path) -> dict:
                 raise AssertionError(f"{name} request {req.req_id}: "
                                      f"{tokens} != the static oracle's "
                                      f"{want_tokens}")
-    if card["prefix hits"] <= 0 or card["alive after replica_down"] != 1:
-        raise AssertionError(f"no prefix hit ({card['prefix hits']}) or no "
-                             f"replica down")
+    if card["prefix hits"] <= 0 or card["alive after replica_down"] != 1 \
+            or not any(reason == "errored" for _, reason
+                       in card["router replica_down"].values()):
+        raise AssertionError(f"no prefix hit ({card['prefix hits']}), no "
+                             f"replica down or no casualty in its slots")
     if card["fleet solver calls, store misses"] != (0, 0) or any(
             g != card["fleet prewarm"]["groups"][0]
             for g in card["fleet prewarm"]["groups"]) or \
@@ -2887,12 +2988,12 @@ def gemma2_sched_trace(vocab: int) -> list:
 
 def gemma2_full(checked: set, store_dir: pathlib.Path, smi: str,
                 out: pathlib.Path | None) -> dict:
-    """gemma2-27b at its published widths, bf16, fused MLP on (the chains
-    do not fuse: three B1 launches and a goma_combine a layer a pass):
-    the static generate (static_full), then GEMMA2_SCHED's trace behind
-    the scheduler, prewarmed from a fresh plan store with the enumerated
-    source (capture traces 9 key blocks x 46 layers per program, PERF.md
-    §7): exact launch counts, every launch at a shape phase 3 held, 0
+    """gemma2-27b at its published widths and GEMMA2_LAYERS layers, bf16,
+    fused MLP on (the chains do not fuse: three B1 launches and a
+    goma_combine a layer a pass): the static generate (static_full), then
+    GEMMA2_SCHED's trace behind the scheduler, prewarmed from a fresh
+    plan store with the enumerated source (capture traces 9 key blocks a
+    layer per program, PERF.md §7): exact launch counts, every launch at a shape phase 3 held, 0
     solver calls in both replays, the second one timed with equal
     streams; then the fp32 gate at CATALOG_GATE_LAYERS layers: the first
     prefill's kernel path against the plain path, and the trace again
@@ -2904,7 +3005,8 @@ def gemma2_full(checked: set, store_dir: pathlib.Path, smi: str,
     from repro_torch.serving import Engine, ServeConfig
     from repro_torch.serving.sched import (ContinuousScheduler, SchedConfig,
                                            TraceClock, replay)
-    cfg, model, params = make_full("gemma2-27b", fused_mlp=True)
+    cfg, model, params = make_full("gemma2-27b", fused_mlp=True,
+                                   layers=GEMMA2_LAYERS)
     static = static_full(cfg, model, params, GEMMA2_FULL, checked, smi, out)
     free_device()
 
@@ -3508,13 +3610,13 @@ def timed_collectives(tp) -> dict:
 
 
 def tp_sched_full_rank(world: int, checked: set, store_dir: str) -> dict:
-    """One rank of phase 11's deployment (llama3-8b, bf16, fused MLP on)
-    sharded over ``world`` ranks: the rank's slices made on the card leaf
+    """One rank of phase 11's deployment (llama3-8b, bf16, fused MLP on) at
+    TP_REST's depth, sharded over ``world`` ranks: the rank's slices made on the card leaf
     by leaf from the seed, the scheduler prewarmed by capture into a
     fresh store (rank 0 first, the others then read it), then phase 11's
     trace in trace time from a RankClock: 0 solver calls and 0 store
-    misses, B1 3 x 32 and goma_combine 32 a forward pass at shapes phase 3
-    held, finite logits; its metrics, peak memory, broadcasts a tick and
+    misses, B1 3 and goma_combine 1 a layer and forward pass at shapes
+    phase 3 held, finite logits; its metrics, peak memory, broadcasts a tick and
     host seconds inside all_reduce and broadcast.  Then the fp32 gate at
     TP_REST's depth: the trace again on the rank's fp32 slices, every
     emitted token's logits row within PATH_TOL of scale of the
@@ -3530,7 +3632,8 @@ def tp_sched_full_rank(world: int, checked: set, store_dir: str) -> dict:
                                            replay)
     from repro_torch.serving.sched.tp import RankClock
     mesh = make_host_mesh(model=world)
-    cfg = dataclasses.replace(get_config("llama3-8b"), fused_mlp=True)
+    cfg = dataclasses.replace(get_config("llama3-8b"), fused_mlp=True,
+                              layers=TP_REST["deploy_layers"])
     model = shard_model(build_model(cfg), mesh)
     tp = model.tp
     torch.cuda.reset_peak_memory_stats()
@@ -3739,7 +3842,7 @@ def sched_name(arch: str, knobs: dict) -> str:
                    " fused" if knobs.get("fused_mlp") else " unfused")
 
 
-def tp_rest(checked: set, store_root: pathlib.Path, phase11: dict,
+def tp_rest(checked: set, store_root: pathlib.Path,
             recurrent: dict) -> dict:
     """Phase 19: for each world of TP_REST, its ranks spawned over gloo on
     the one card.  19a: the recurrent, hybrid, encdec and vlm smoke
@@ -3748,9 +3851,9 @@ def tp_rest(checked: set, store_root: pathlib.Path, phase11: dict,
     and deepseek-moe-16b smoke, card == CPU == one rank's scheduler ==
     the static oracle with 0 solver calls after rank 0's prewarm, and a
     router of 2 replicas at TP 2 == the one-rank router; on TP 2 also
-    19c, phase 11's deployment (every rank the same streams, the fp32
-    gate), and 19d, rwkv6-7b and zamba2-2.7b at full width (every rank
-    the same tokens, the fp32 gates).  Reported beside phase 11's and
+    19c, phase 11's deployment at TP_REST's depth (every rank the same
+    streams, the fp32 gate), and 19d, rwkv6-7b and zamba2-2.7b at full
+    width (every rank the same tokens, the fp32 gates), reported beside
     phases 8 and 9's (``recurrent``) TP 1 numbers."""
     from repro_torch.launch.mesh import run_ranks
     oracle = {arch: smoke_oracle(arch, knobs)
@@ -3836,21 +3939,17 @@ def tp_rest(checked: set, store_root: pathlib.Path, phase11: dict,
                      host_seconds_inside_by_rank=[
                          g["full"]["serve"]["host_seconds_inside"]
                          for g in ranks])
-        same = [a == b for rid, (t, _) in full["streams"].items()
-                for a, b in zip(t, phase11["streams"][rid][0])]
-        serve["tokens_equal_to_phase11"] = sum(same) / len(same)
         report[world]["scheduler"] = serve
         key = f"TP{world} scheduler llama3-8b full width (rank 0)"
         runs[key], shapes[key] = full["launches"], full["shapes"]
         summ = serve["metrics"]
-        print(f"  TP {world}: phase 11's deployment, streams equal on every "
-              f"rank ({serve['tokens_equal_to_phase11']} of the tokens "
-              f"equal to phase 11's bf16 streams); forward passes "
+        print(f"  TP {world}: phase 11's deployment at "
+              f"{TP_REST['deploy_layers']} layers, streams equal on every "
+              f"rank; forward passes "
               f"{serve['forward_passes']}, launches {full['launches']}; "
               f"solver calls {serve['solver_calls']}, store misses "
               f"{serve['store_misses']}; prewarm {serve['prewarm']}")
-        print(f"  TP {world}: tokens/s {summ['tokens_per_s']} (TP 1, phase "
-              f"11: {phase11['serve']['metrics']['tokens_per_s']}), ttft "
+        print(f"  TP {world}: tokens/s {summ['tokens_per_s']}, ttft "
               f"p50/p95 {summ['ttft_p50_s']}/{summ['ttft_p95_s']} s, tpot "
               f"p50 {summ['tpot_p50_s']} s, ticks {serve['ticks']}, "
               f"broadcasts a tick {serve['broadcasts_per_tick']}, "
@@ -3889,6 +3988,516 @@ def tp_rest(checked: set, store_root: pathlib.Path, phase11: dict,
                   f"rank {rs['fp32_gate_max_abs_err_by_rank']} (scale "
                   f"{rs['fp32_gate_scale']}, tol {PATH_TOL} x scale)")
     return {"serve": report, "launches": runs, "shapes": shapes}
+
+
+# -------------------------------------------------------------- phase 20
+def kernel_checks() -> dict:
+    """Each kernel's phase-3 check by the name recording_shapes gives its
+    launches: f(shape, dtype, gen) holds it against its plain version at
+    that shape, untimed."""
+    return {
+        "goma_matmul": lambda sh, dt, gen: check_b1(sh, dt, gen,
+                                                    timed=False),
+        "goma_fused_matmul": lambda sh, dt, gen: check_b2(
+            *sh, dt, gen, timed=False),
+        "goma_combine": lambda sh, dt, gen: check_combine(sh, dt, gen,
+                                                          timed=False),
+        "wkv6_scan": lambda sh, dt, gen: check_wkv6(sh[:4], sh[4], dt, gen,
+                                                    timed=False),
+        "ssd_scan": lambda sh, dt, gen: check_ssd(sh[:5], sh[5], dt, gen,
+                                                  timed=False)}
+
+
+def hold_new_shapes(seen: dict, checked: set, gen) -> list:
+    """Hold every kernel launch recorded in ``seen`` at a shape no earlier
+    check held against its plain version there and then (untimed), and
+    add it to ``checked``; returns the shapes held here."""
+    held = []
+    for key in sorted(seen):
+        if key in checked:
+            continue
+        name, shape, dtype = key
+        row = kernel_checks()[name](shape, getattr(torch, dtype), gen)
+        held.append({"kernel": name, "shape": list(shape), "dtype": dtype,
+                     "max_abs_err": row["max_abs_err"]})
+        checked.add(key)
+    return held
+
+
+def clone_tree(tree: dict) -> dict:
+    return {k: clone_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def smoke_batches(cfg, steps: int, device) -> list:
+    """host_batch's stream for a smoke config, as the loop takes it, with
+    the frontends' zero stub (launch.train's) for encdec and vlm."""
+    from repro_torch.data import DataConfig, RankRows, global_arrays
+    dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN["smoke_seq"],
+                    global_batch=TRAIN["smoke_batch"], seed=SEED)
+    stub = {}
+    if cfg.family in ("encdec", "vlm"):
+        key = "frames" if cfg.family == "encdec" else "patches"
+        stub = {key: torch.zeros((TRAIN["smoke_batch"], cfg.frontend_len,
+                                  cfg.d_model), device=device)}
+    return [{**global_arrays(dc, i, RankRows(device)), **stub}
+            for i in range(steps)]
+
+
+def train_steps(model, params, batches) -> list:
+    """The losses of jit_train_step over ``batches`` (params updated in
+    place), at the CPU tests' lr 3e-3 with a warmup of 2."""
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import jit_train_step
+    step = jit_train_step(model, opt.AdamWConfig(
+        lr=3e-3, warmup_steps=2, total_steps=20))
+    state = opt.init_state(params)
+    losses = []
+    for b in batches:
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def grad_refusal(model, params, batch) -> str:
+    """The error a loss under grad raises through the kernel path."""
+    from repro_torch.kernels.goma_gemm import NoBackwardError
+    from repro_torch.training import optimizer as opt
+    live = opt.tree_map(lambda t: t.detach().requires_grad_(), params)
+    try:
+        model.loss(live, batch, remat=False)
+    except NoBackwardError as e:
+        return str(e)
+    raise AssertionError(f"{model.cfg.name}: a loss under grad ran through "
+                         f"the kernels without an error")
+
+
+def train_smoke(checked: set, gen) -> dict:
+    """20a: every smoke config of ARCHS, fp32, TRAIN's smoke steps of
+    AdamW on the card against the same steps on the CPU (one set of fp32
+    masters made on the CPU, host_batch's stream), losses within
+    TRAIN_TOL of scale; then, with the fused MLP and the scan kernels on,
+    the loss without grad on the card (B2, or B1 and goma_combine; B3,
+    B4) against the plain loss within TRAIN_TOL, every launch held against
+    its plain version at its shape, and under grad the kernel path raises
+    on the card with the CPU's error."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_to
+    rows, runs, shapes, held = {}, {}, {}, []
+    for arch in sorted(ARCHS):
+        cfg = get_config(arch, smoke=True)
+        model = build_model(cfg)
+        params = model.init_params(torch.Generator().manual_seed(SEED),
+                                   "cpu", masters=True)
+        card_params = tree_to(params, "cuda")
+        steps = TRAIN["smoke_steps"]
+        # the steps update copies in place
+        cpu = train_steps(model, clone_tree(params),
+                          smoke_batches(cfg, steps, "cpu"))
+        card = train_steps(model, clone_tree(card_params),
+                           smoke_batches(cfg, steps, "cuda"))
+        scale = max(1.0, max(map(abs, cpu)))
+        gap = max(abs(a - b) for a, b in zip(card, cpu))
+        if not gap <= TRAIN_TOL * scale:
+            raise AssertionError(f"{arch} smoke: card losses {card} != CPU "
+                                 f"losses {cpu}")
+        kcfg = dataclasses.replace(cfg, fused_mlp=True,
+                                   use_pallas_scan=True)
+        kmodel = build_model(kcfg)
+        batch = smoke_batches(cfg, 1, "cuda")[0]
+        reset_launches()
+        seen = {}
+        with torch.no_grad(), recording_shapes(seen):
+            got = float(kmodel.loss(card_params, batch))
+        launches = launch_counts()
+        held += hold_new_shapes(seen, checked, gen)
+        run = held_shapes(seen, launches, checked)
+        with torch.no_grad():
+            want = float(model.loss(card_params, batch))
+        kernel_gap = abs(got - want)
+        if not kernel_gap <= TRAIN_TOL * max(1.0, abs(want)):
+            raise AssertionError(f"{arch} smoke: kernel-path loss {got} != "
+                                 f"plain loss {want}")
+        refusal = None
+        if any(launches.values()):
+            errors = [grad_refusal(kmodel, p, {k: v.to(dev) for k, v in
+                                               batch.items()})
+                      for dev, p in (("cuda", card_params), ("cpu", params))]
+            if errors[0] != errors[1]:
+                raise AssertionError(f"{arch}: the card refuses with "
+                                     f"{errors[0]!r}, the CPU with "
+                                     f"{errors[1]!r}")
+            refusal = errors[0]
+        elif cfg.family not in ("moe", "encdec"):
+            raise AssertionError(f"{arch} smoke: the kernel path launched "
+                                 f"no kernel")
+        rows[arch] = {"card_losses": card, "cpu_losses": cpu,
+                      "max_loss_gap": gap, "kernel_loss": got,
+                      "plain_loss": want, "kernel_loss_gap": kernel_gap,
+                      "launches": launches, "refusal": refusal}
+        runs[f"train {arch} smoke, loss without grad"] = launches
+        shapes[f"train {arch} smoke, loss without grad"] = run
+        print(f"  {arch} smoke: card {card} vs cpu {cpu} (gap {gap:.3g}); "
+              f"kernel loss {got} vs plain {want} (gap {kernel_gap:.3g}), "
+              f"launches { {k: v for k, v in launches.items() if v} }")
+    print(f"  held here at new shapes: {held}")
+    print(f"  under grad the kernel path raises, card == CPU: "
+          f"{sorted({r['refusal'] for r in rows.values() if r['refusal']})}")
+    return {"rows": rows, "launches": runs, "shapes": shapes, "held": held}
+
+
+def full_model(layers: int | None = None, **knobs):
+    """stablelm-1.6b at its published widths (the first ``layers``
+    layers when given), with the config ``knobs`` set: (cfg, model)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), **knobs)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, layers=layers)
+    return cfg, build_model(cfg)
+
+
+def train_full_setup(layers: int | None = None, **knobs):
+    """``full_model``, its fp32 masters made on the card from the seed,
+    and AdamW's zero moments: (cfg, model, params, opt_state)."""
+    from repro_torch.training import optimizer as opt
+    cfg, model = full_model(layers, **knobs)
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), "cuda",
+        masters=True)
+    return cfg, model, params, opt.init_state(params)
+
+
+def full_optimizer():
+    from repro_torch.training import optimizer as opt
+    return opt.AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"],
+                           total_steps=TRAIN["steps"])
+
+
+def full_data(cfg):
+    from repro_torch.data import DataConfig
+    return DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq"],
+                      global_batch=TRAIN["batch"], seed=SEED)
+
+
+def train_full(checked: set, smi: str, out: pathlib.Path | None) -> dict:
+    """20b: TRAIN's steps of stablelm-1.6b at full width through
+    run_training (no checkpoint): every loss finite (the loop's NaN guard
+    raises otherwise) and the last 5 losses' mean below the first 5's;
+    reported: the median step time, tokens/s, peak memory, the straggler
+    count, and one more step under the profiler (the device's idle
+    share).  Then the loss without grad with the fused MLP on: B1 3 and
+    goma_combine 1 a layer, each launch at a shape phase 3 held; its bf16
+    gap to the plain loss reported, and the fp32 gate at TRAIN's
+    gate_layers layers: the kernel path's loss and last hidden states
+    within PATH_TOL of scale of the plain path's."""
+    from repro_torch.data import RankRows, global_arrays
+    from repro_torch.models import build_model
+    from repro_torch.training import LoopConfig, run_training
+    from repro_torch.training.train_step import jit_train_step
+    free_device()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model, params, state = train_full_setup()
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in leaves(params))
+    made = {"parameters": n, "seconds": time.perf_counter() - t0,
+            "gib_with_moments": torch.cuda.memory_allocated() / 2**30}
+    print(f"  {cfg.name}: {n} parameters, fp32 masters and moments "
+          f"{made['gib_with_moments']} GiB, made in {made['seconds']:.1f} s")
+    step = jit_train_step(model, full_optimizer(), remat=True)
+    data = full_data(cfg)
+    params, state, loop = run_training(
+        step, params, state, data, RankRows("cuda"),
+        LoopConfig(total_steps=TRAIN["steps"], ckpt_every=10**9,
+                   log_every=5), None, log=lambda s: print(f"  {s}"))
+    losses = loop.losses
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"{cfg.name} did not descend: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(loop.step_seconds)
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    batch = global_arrays(data, TRAIN["steps"], RankRows("cuda"))
+    prof = profile_run(lambda: step(params, state, batch), smi, out,
+                       "profile_train", host_ops=False)
+    report = {"device": smi, "made": made, "losses": losses,
+              "step_seconds": loop.step_seconds, "median_step_s": med,
+              "tokens_per_s": tokens / med, "peak_memory_gib": peak,
+              "straggler_steps": loop.straggler_steps,
+              "profiled_step": {k: prof[k] for k in (
+                  "wall_ms", "device_busy_ms", "device_busy_share",
+                  "device_idle_share", "device_kernel_launches")}}
+    print(f"  {cfg.name} training on {smi}: median step {med} s, "
+          f"{report['tokens_per_s']} tokens/s, peak {peak} GiB, "
+          f"{loop.straggler_steps} straggler steps; losses {losses}")
+    del state, step
+    free_device()
+    # the loss without grad through B1 and goma_combine, bf16
+    kmodel = build_model(dataclasses.replace(cfg, fused_mlp=True))
+    reset_launches()
+    seen = {}
+    with torch.no_grad():
+        with recording_shapes(seen):
+            got = float(kmodel.loss(params, batch))
+        launches = launch_counts()
+        want = float(model.loss(params, batch))
+    run = held_shapes(seen, launches, checked)
+    expect = {"goma_matmul": 3 * cfg.layers, "goma_fused_matmul": 0,
+              "goma_combine": cfg.layers, "wkv6_scan": 0, "ssd_scan": 0}
+    if launches != expect:
+        raise AssertionError(f"the loss launched {launches}, not {expect}")
+    report["kernel_loss"] = {"launches": launches, "bf16_kernel_loss": got,
+                             "bf16_plain_loss": want,
+                             "bf16_gap": abs(got - want)}
+    # the fp32 gate at the first layers
+    gate = dict(params, layers=first_layers(params["layers"],
+                                            TRAIN["gate_layers"]))
+    g32 = dict(compute_dtype="float32", layers=TRAIN["gate_layers"])
+
+    def gate_run(fused):
+        m = build_model(dataclasses.replace(cfg, fused_mlp=fused, **g32))
+        with torch.no_grad():
+            x = m._embed_in(gate, batch["tokens"])
+            x, _ = m._forward_stack(gate, x, torch.arange(
+                x.shape[1], device="cuda"))
+            return m.loss(gate, batch), x
+    (kl, kx), (pl, px) = gate_run(True), gate_run(False)
+    report["kernel_loss"].update(
+        fp32_gate_layers=TRAIN["gate_layers"],
+        fp32_loss_err=close_to_scale(kl, pl, PATH_TOL),
+        fp32_hidden_err=close_to_scale(kx, px, PATH_TOL),
+        fp32_hidden_scale=float(px.abs().max()))
+    print(f"  loss without grad, fused MLP: launches {launches}, bf16 "
+          f"kernel {got} vs plain {want}; fp32 gate at "
+          f"{TRAIN['gate_layers']} layers: loss err "
+          f"{report['kernel_loss']['fp32_loss_err']}, hidden err "
+          f"{report['kernel_loss']['fp32_hidden_err']} (scale "
+          f"{report['kernel_loss']['fp32_hidden_scale']})")
+    del params, gate, kx, px
+    free_device()
+    return {"serve": report, "launches": launches, "shapes": run}
+
+
+def resume_run(arch: str, layers: int | None, root: pathlib.Path) -> dict:
+    """20c: TRAIN's resume steps straight against half of them, a save, a
+    restore in a fresh manager and the other half, through the donated
+    step, bitwise (losses and every leaf), under deterministic
+    algorithms.  The checkpoint's bytes and the save and restore
+    seconds are reported."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, RankRows, global_arrays
+    from repro_torch.models import build_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import jit_train_step
+    n, half = TRAIN["resume_steps"], TRAIN["resume_steps"] // 2
+    if arch == TRAIN["arch"]:
+        cfg, model = full_model(layers)
+        ocfg, data = full_optimizer(), full_data(cfg)
+    else:
+        cfg = get_config(arch, smoke=True)
+        model = build_model(cfg)
+        ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=20)
+        data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN["smoke_seq"],
+                          global_batch=TRAIN["smoke_batch"], seed=SEED)
+
+    def fresh():
+        p = model.init_params(torch.Generator(device="cuda").manual_seed(
+            SEED), "cuda", masters=True)
+        return p, opt.init_state(p)
+
+    def run(params, state, start, stop):
+        step = jit_train_step(model, ocfg, remat=True)
+        losses = []
+        for i in range(start, stop):
+            params, state, m = step(params, state, global_arrays(
+                data, i, RankRows("cuda")))
+            losses.append(float(m["loss"]))
+        return params, state, losses
+
+    p_ref, _, l_ref = run(*fresh(), 0, n)
+    ref = [t.clone() for t in opt.tree_leaves(p_ref)]
+    del p_ref
+    free_device()
+    p, s, l_a = run(*fresh(), 0, half)
+    d = root / cfg.name
+    t0 = time.perf_counter()
+    mgr = CheckpointManager(d, async_save=True)
+    mgr.save(half, (p, s))
+    mgr.wait()
+    save_s = time.perf_counter() - t0
+    like = (p, s)
+    t0 = time.perf_counter()
+    (p, s), step0 = CheckpointManager(d).restore(like)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del like
+    p, s, l_b = run(p, s, step0, n)
+    equal = l_a + l_b == l_ref and all(
+        torch.equal(a, b) for a, b in zip(opt.tree_leaves(p), ref))
+    nbytes = sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
+    row = {"steps": n, "layers": cfg.layers, "losses": l_ref,
+           "resumed_losses": l_a + l_b, "bitwise_equal": equal,
+           "checkpoint_bytes": nbytes, "save_s": save_s,
+           "restore_s": restore_s}
+    print(f"  {cfg.name} ({cfg.layers} layers): {n} steps straight == "
+          f"{half} + save + restore + {n - half}: {equal}; checkpoint "
+          f"{nbytes} bytes, save {save_s:.2f} s, restore {restore_s:.2f} s")
+    if not equal:
+        raise AssertionError(f"{cfg.name}: the resumed run differs: "
+                             f"{l_a + l_b} vs {l_ref}")
+    del p, s, ref
+    free_device()
+    return row
+
+
+def train_resume(root: pathlib.Path) -> dict:
+    """20c on the llama3-8b smoke config and stablelm-1.6b at TRAIN's
+    resume layers, the checkpoints in ``root``."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        return {"llama3-8b smoke": resume_run("llama3-8b", None, root),
+                f"{TRAIN['arch']} {TRAIN['resume_layers']} layers":
+                    resume_run(TRAIN["arch"], TRAIN["resume_layers"], root)}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def fingerprint(params) -> list[int]:
+    """An int64 fingerprint of every leaf's bits (a position-weighted sum
+    of the fp32 bit patterns, wrapping): equal bits give equal
+    fingerprints, computed on the card."""
+    from repro_torch.training import optimizer as opt
+    out = []
+    for t in opt.tree_leaves(params):
+        acc = 0
+        bits = t.detach().reshape(-1).view(torch.int32)
+        for i, chunk in enumerate(bits.split(1 << 24)):
+            w = torch.arange(chunk.numel(), device=chunk.device) % 65521 + i
+            acc += int((chunk.to(torch.int64) * (w + 1)).sum())
+        out.append(acc)
+    return out
+
+
+def train_dp_rank(rank: int, world: int, mode: str) -> dict:
+    """20d, one rank: stablelm-1.6b at TRAIN's dp layers in fp32 (the same
+    masters from the seed on every rank), TRAIN's dp steps of jit_train_step over
+    the default group, on this rank's rows of the global batch: every
+    step's (mean) loss, seconds, all_reduce calls, bytes and seconds, and
+    the parameters' fingerprint."""
+    from repro_torch.data import RankRows, global_arrays
+    from repro_torch.training.train_step import jit_train_step
+    cfg, model, params, state = train_full_setup(
+        TRAIN["dp_layers"], compute_dtype=TRAIN["dp_dtype"])
+    step = jit_train_step(model, full_optimizer(), remat=True,
+                          compress=mode == "compressed")
+    data = full_data(cfg)
+    rows = []
+    for i in range(TRAIN["dp_steps"]):
+        batch = global_arrays(data, i, RankRows("cuda", rank, world))
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        loss = float(m["loss"])
+        rows.append({"loss": loss, "step_s": time.perf_counter() - t0,
+                     "comm": dict(step.comm),
+                     "fingerprint": fingerprint(params)})
+    return {"rows": rows, "peak_memory_gib":
+            torch.cuda.max_memory_allocated() / 2**30}
+
+
+def training_phase(checked: set, gen, smi: str, out: pathlib.Path | None,
+                   ckpt_root: pathlib.Path) -> dict:
+    """Phase 20: 20a-20d, each part's seconds printed."""
+    report, runs, shapes = {}, {}, {}
+    t0 = time.perf_counter()
+    smoke = train_smoke(checked, gen)
+    runs.update(smoke["launches"])
+    shapes.update(smoke["shapes"])
+    report["smoke"] = {"rows": smoke["rows"], "held": smoke["held"],
+                       "seconds": time.perf_counter() - t0}
+    print(f"  20a: {report['smoke']['seconds']:.1f} s")
+    t0 = time.perf_counter()
+    full = train_full(checked, smi, out)
+    name = f"train {TRAIN['arch']} full width, loss without grad"
+    runs[name], shapes[name] = full["launches"], full["shapes"]
+    report["full"] = dict(full["serve"], seconds=time.perf_counter() - t0)
+    print(f"  20b: {report['full']['seconds']:.1f} s")
+    t0 = time.perf_counter()
+    report["resume"] = dict(train_resume(ckpt_root),
+                            seconds=time.perf_counter() - t0)
+    print(f"  20c: {report['resume']['seconds']:.1f} s")
+    t0 = time.perf_counter()
+    report["data_parallel"] = dict(train_dp(),
+                                   seconds=time.perf_counter() - t0)
+    print(f"  20d: {report['data_parallel']['seconds']:.1f} s")
+    return {"report": report, "launches": runs, "shapes": shapes}
+
+
+def train_dp() -> dict:
+    """20d: TRAIN's dp ranks over gloo on the one card, by the exact mean
+    and by the int8 error-feedback all-reduce: every rank's parameters
+    bitwise equal after every step (their fingerprints), the exact mean's
+    losses within TRAIN_TOL of scale of one rank's on the whole global
+    batch, the compressed mode's loss gap reported; bytes a step and the
+    host seconds inside all_reduce (gloo stages CUDA tensors through the
+    host: not NVLink numbers)."""
+    from repro_torch.data import RankRows, global_arrays
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.training.train_step import jit_train_step
+    free_device()
+    cfg, model, params, state = train_full_setup(
+        TRAIN["dp_layers"], compute_dtype=TRAIN["dp_dtype"])
+    step = jit_train_step(model, full_optimizer(), remat=True)
+    one = []
+    for i in range(TRAIN["dp_steps"]):
+        params, state, m = step(params, state, global_arrays(
+            full_data(cfg), i, RankRows("cuda")))
+        one.append(float(m["loss"]))
+    n = sum(t.numel() for t in leaves(params))
+    del params, state, step
+    free_device()
+    world = TRAIN["dp_world"]
+    report = {"one_rank_losses": one, "parameters": n, "world": world}
+    for mode in ("exact", "compressed"):
+        t0 = time.perf_counter()
+        ranks = run_ranks(train_dp_rank, world, world, mode, timeout_s=600)
+        seconds = time.perf_counter() - t0
+        for r, got in enumerate(ranks):
+            for i, (a, b) in enumerate(zip(got["rows"], ranks[0]["rows"])):
+                if a["fingerprint"] != b["fingerprint"] or \
+                        a["loss"] != b["loss"]:
+                    raise AssertionError(f"{mode}: rank {r} holds other "
+                                         f"parameters than rank 0 after "
+                                         f"step {i}")
+        losses = [row["loss"] for row in ranks[0]["rows"]]
+        gap = max(abs(a - b) for a, b in zip(losses, one))
+        if mode == "exact" and not gap <= TRAIN_TOL * max(
+                1.0, max(map(abs, one))):
+            raise AssertionError(f"exact mean: losses {losses} vs one "
+                                 f"rank's {one}")
+        report[mode] = {
+            "losses": losses, "loss_gap_to_one_rank": gap,
+            "seconds_phase": seconds,
+            "step_seconds": [row["step_s"] for row in ranks[0]["rows"]],
+            "all_reduce_calls": ranks[0]["rows"][-1]["comm"]["calls"],
+            "all_reduce_bytes_a_step": ranks[0]["rows"][-1]["comm"]["bytes"],
+            "all_reduce_seconds_by_rank": [
+                [row["comm"]["seconds"] for row in g["rows"]]
+                for g in ranks],
+            "peak_memory_gib_by_rank": [g["peak_memory_gib"]
+                                        for g in ranks]}
+        print(f"  DP {world} ({mode}): losses {losses} (one rank {one}, "
+              f"gap {gap:.3g}); ranks bitwise equal after every step; "
+              f"{report[mode]['all_reduce_calls']} all_reduces, "
+              f"{report[mode]['all_reduce_bytes_a_step']} bytes a step; "
+              f"seconds a step {report[mode]['step_seconds']}, inside "
+              f"all_reduce by rank "
+              f"{report[mode]['all_reduce_seconds_by_rank']}; peak "
+              f"{report[mode]['peak_memory_gib_by_rank']} GiB; "
+              f"{seconds:.1f} s")
+    return report
 
 
 def profile_run(fn, smi: str, out: pathlib.Path | None, name: str, *,
@@ -3989,6 +4598,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on "
                  "the card")
+    # phase 20's resume check runs under deterministic algorithms, which
+    # need cuBLAS's fixed workspace; set before the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if args.time_generate:
         time_generate(PHASE5_TIMED_RUNS, subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4270,13 +4882,22 @@ def main() -> None:
     free_device()
     with phase("19 the rest of tensor-parallel serving: the recurrent, "
                "hybrid, encdec and vlm smoke configs, the scheduler and the "
-               "router, phase 11's deployment at TP 2 (B1, goma_combine) and "
+               "router, phase 11's deployment at 8 layers at TP 2 (B1, "
+               "goma_combine) and "
                "rwkv6-7b and zamba2-2.7b at full width at TP 2 (B3, B4 at a "
                "rank's heads; B1)"):
-        tp_more = tp_rest(checked, stores / "tp_rest", sched,
+        tp_more = tp_rest(checked, stores / "tp_rest",
                           {"rwkv6-7b": rwkv, "zamba2-2.7b": zamba})
         runs.update(tp_more["launches"])
         shapes.update(tp_more["shapes"])
+    free_device()
+    with phase("20 training: every smoke config card == CPU and its loss "
+               "through the kernels without grad (B2, B3, B4), stablelm-1.6b "
+               "at full width (B1, goma_combine in the loss without grad), "
+               "exact resume, data-parallel ranks"):
+        train = training_phase(checked, gen, smi, out, stores / "ckpt")
+        runs.update(train["launches"])
+        shapes.update(train["shapes"])
     free_device()
 
     b1 = next(r for r in b1_rows if r["shape"] == [4, 14336, 4096])
@@ -4343,6 +4964,7 @@ def main() -> None:
                          "seamless-m4t-medium": seamless["serve"]},
              "tensor_parallel": tp["serve"],
              "tensor_parallel_rest": tp_more["serve"],
+             "training": train["report"],
              "launches": runs,
              "shapes": shapes,
              "kernels": kernels,

@@ -36,7 +36,8 @@ import torch
 from ..core.hopper_mapping import (CTA_TILE, SMEM_BYTES, FusedTilePlan,
                                    fused_smem_bytes)
 from . import _build
-from .goma_gemm import DTYPE_CODES, check_cuda_operands, pad_k, traced
+from .goma_gemm import (DTYPE_CODES, check_cuda_operands, pad_k,
+                        refuse_grad, traced)
 
 
 def _gelu_tanh(g: torch.Tensor) -> torch.Tensor:
@@ -75,6 +76,7 @@ def goma_combine(g: torch.Tensor, u: torch.Tensor,
     if g.shape != u.shape or g.dtype != u.dtype:
         raise ValueError(f"gate {tuple(g.shape)} {g.dtype} and up "
                          f"{tuple(u.shape)} {u.dtype} differ")
+    refuse_grad("goma_combine", g, u)
     if g.device.type != "cuda":
         if traced(g):
             return torch.empty_like(g)
@@ -131,6 +133,7 @@ def goma_fused_matmul(a: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     if not plan.fused or plan.bm <= 0:
         raise ValueError(f"unfused plan dispatched to the fused kernel: "
                          f"{plan}")
+    refuse_grad("goma_fused_matmul", a, wg, wu, wd)
     if a.device.type != "cuda":
         if traced(a):
             return a.new_empty((pm, pn2))

@@ -58,6 +58,25 @@ def traced(t: torch.Tensor) -> bool:
     return isinstance(t, FakeTensor)
 
 
+class NoBackwardError(RuntimeError):
+    """A kernel was called where autograd would need its gradient."""
+
+
+def refuse_grad(name: str, *ts: torch.Tensor) -> None:
+    """Raise when grad mode is on and an operand requires grad: the
+    kernels have no backward (the reference differentiates no Pallas
+    kernel either: ``jax.grad`` through them fails), and on the card
+    their outputs, written through raw pointers, would carry no
+    ``grad_fn``, so the weights before them would train on no gradient
+    without an error.  Raised on every device, the CPU's plain versions
+    included, so that the CPU refuses what the card refuses."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NoBackwardError(
+            f"{name} has no backward: run it under torch.no_grad() (or "
+            f"inference_mode), or train with the config's fused_mlp and "
+            f"use_pallas_scan off, as the reference trains")
+
+
 def check_cuda_operands(name: str, *ts: torch.Tensor) -> None:
     """Raise unless every operand is a contiguous CUDA tensor of one dtype
     the kernels take (float32 or bfloat16), 16-byte aligned (a TMA map's
@@ -151,6 +170,7 @@ def goma_matmul(a: torch.Tensor, b: torch.Tensor, plan: TpuTilePlan, *,
     if a.shape != (pm, pk) or b.shape != (pk, pn):
         raise ValueError(f"operands {tuple(a.shape)} @ {tuple(b.shape)} do "
                          f"not match the plan's padded {plan.padded}")
+    refuse_grad("goma_matmul", a, b)
     if a.device.type != "cuda":
         if traced(a):
             return a.new_empty((pm, pn))

@@ -31,7 +31,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .goma_gemm import DTYPE_CODES, check_cuda_operands, traced
+from .goma_gemm import (DTYPE_CODES, check_cuda_operands, refuse_grad,
+                        traced)
 
 # the head (P) and state (N) sizes the kernel is built for, each one of
 # these: zamba2-2.7b's 64 x 64 and its smoke config's 16 x 16
@@ -55,8 +56,10 @@ def _check_shapes(xh, dt, a_log, Bm, Cm, chunk: int) -> None:
 def ssd_scan_plain(xh, dt, a_log, Bm, Cm, *, chunk: int = 64,
                    init_state=None):
     """The chunks in order, each as ``_ssd_kernel`` computes it, in fp32,
-    from ``init_state`` (B, H, P, N) or zeros.  Memory: one chunk's
-    (B, C, C, H) decay tensor at a time."""
+    from ``init_state`` (B, H, P, N) or zeros.  Out of place throughout,
+    so autograd differentiates it (the training path of the Mamba2
+    families).  Memory: one chunk's (B, C, C, H) decay tensor at a
+    time."""
     _check_shapes(xh, dt, a_log, Bm, Cm, chunk)
     B, S, H, P = xh.shape
     N = Bm.shape[-1]
@@ -73,8 +76,10 @@ def ssd_scan_plain(xh, dt, a_log, Bm, Cm, *, chunk: int = 64,
         cum = torch.cumsum(dtc * a, dim=1)                   # (B, C, H)
         total = cum[:, -1]                                   # (B, H)
         xdt = xc * dtc[..., None]                            # (B, C, H, P)
-        decay = (cum[:, :, None] - cum[:, None]).exp_()      # (B, C, C, H)
-        decay.masked_fill_(above[None, :, :, None], 0.0)
+        # masked before the exp, as in wkv6_scan_plain: zero gradient
+        # where the exponent above the diagonal would overflow
+        decay = (cum[:, :, None] - cum[:, None]).masked_fill(
+            above[None, :, :, None], -torch.inf).exp()       # (B, C, C, H)
         scores = torch.einsum("btn,bsn->bts", Cc, Bc)[..., None] * decay
         y = torch.einsum("btsh,bshp->bthp", scores, xdt)
         y = y + torch.exp(cum)[..., None] * torch.einsum(
@@ -94,6 +99,7 @@ def ssd_scan(xh, dt, a_log, Bm, Cm, *, chunk: int = 64):
     _check_shapes(xh, dt, a_log, Bm, Cm, chunk)
     B, S, H, P = xh.shape
     N = Bm.shape[-1]
+    refuse_grad("ssd_scan", xh, dt, a_log, Bm, Cm)
     if xh.device.type != "cuda":
         if traced(xh):
             return torch.empty_like(xh), xh.new_empty((B, H, P, N),

@@ -7,6 +7,9 @@ composition when the chain does not fuse.  Both run on the tensors'
 device: the CUDA kernels for CUDA tensors, their plain versions for CPU
 tensors.  ``force_plain=True`` picks the plain fp32-accumulated products
 instead of the planned kernels (the counterpart of ``force_xla``).
+Neither kernel path has a backward: with grad mode on and an operand
+that requires grad both raise, on every device
+(``goma_gemm.refuse_grad``); the plain products differentiate.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from ..core.hopper_mapping import plan_fused_mlp, plan_gemm_tiling
 from ..obs.registry import get_registry
 from ..obs.tracing import span as _span
 from .goma_fused import goma_combine, goma_combine_plain, goma_fused_matmul
-from .goma_gemm import goma_matmul
+from .goma_gemm import goma_matmul, refuse_grad
 from .ref import matmul_ref
 
 _REG = get_registry()
@@ -43,6 +46,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, force_plain: bool = False,
                k=int(a.shape[1]), force_plain=force_plain):
         if force_plain:
             return matmul_ref(a, b)
+        refuse_grad("gemm", a, b)
         M, K = a.shape
         K2, N = b.shape
         if K != K2:
@@ -104,6 +108,7 @@ def fused_mlp(a: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
             act = goma_combine_plain(matmul_ref(a, wg), matmul_ref(a, wu),
                                      activation)
             return matmul_ref(act, wd)
+        refuse_grad("fused_mlp", a, wg, wu, wd)
         if plan is None:
             plan = plan_fused_mlp(M, FF, K, N2,
                                   dtype_bytes=a.element_size())

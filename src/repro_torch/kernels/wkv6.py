@@ -27,7 +27,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .goma_gemm import DTYPE_CODES, check_cuda_operands, traced
+from .goma_gemm import (DTYPE_CODES, check_cuda_operands, refuse_grad,
+                        traced)
 
 # the head size the kernel is built for: RWKV-6's, the only one it has
 HEAD = 64
@@ -49,8 +50,10 @@ def _check_shapes(r, k, v, logw, u, chunk: int) -> None:
 def wkv6_scan_plain(r, k, v, logw, u, *, chunk: int = 64,
                     init_state=None):
     """The chunks in order, each as ``_wkv6_kernel`` computes it, in fp32,
-    from ``init_state`` (B, H, P, P) or zeros.  Memory: one chunk's
-    (B, C, C, H, P) decay tensor at a time."""
+    from ``init_state`` (B, H, P, P) or zeros.  Out of place throughout,
+    so autograd differentiates it (the training path of the RWKV
+    family).  Memory: a chunk's (B, C, C, H, P) decay tensor and its
+    product with r, two at a time (without grad)."""
     _check_shapes(r, k, v, logw, u, chunk)
     B, S, H, P = r.shape
     f32 = torch.float32
@@ -66,11 +69,16 @@ def wkv6_scan_plain(r, k, v, logw, u, *, chunk: int = 64,
         cum = torch.cumsum(lw, dim=1)
         cum_tm1 = torch.cat([torch.zeros_like(cum[:, :1]), cum[:, :-1]], 1)
         total = cum[:, -1]                                   # (B, H, P)
-        # scores[t,s] = sum_p r[t,p] exp(cum_tm1[t,p] - cum[s,p]) k[s,p]
-        decay = (cum_tm1[:, :, None] - cum[:, None]).exp_()  # (B,C,C,H,P)
-        decay.masked_fill_(above[None, :, :, None, None], 0.0)
-        scores = decay.mul_(rc[:, :, None]).mul_(kc[:, None]).sum(-1)
-        del decay
+        # scores[t,s] = sum_p r[t,p] exp(cum_tm1[t,p] - cum[s,p]) k[s,p];
+        # the exponent is masked before the exp: above the diagonal it
+        # can overflow for strong decays, and exp(-inf) = 0 carries a
+        # zero gradient where 0 * exp(inf) would not
+        decay = (cum_tm1[:, :, None] - cum[:, None]).masked_fill(
+            above[None, :, :, None, None], -torch.inf).exp()  # (B,C,C,H,P)
+        rdecay = decay * rc[:, :, None]
+        del decay               # two such tensors at a time, without grad
+        scores = (rdecay * kc[:, None]).sum(-1)
+        del rdecay
         y = torch.einsum("btsh,bshp->bthp", scores, vc)
         y = y + torch.sum(rc * u * kc, dim=-1, keepdim=True) * vc
         y = y + torch.einsum("bthp,bhpq->bthq", rc * torch.exp(cum_tm1),
@@ -88,6 +96,7 @@ def wkv6_scan(r, k, v, logw, u, *, chunk: int = 64):
     fp32), from a zero initial state."""
     _check_shapes(r, k, v, logw, u, chunk)
     B, S, H, P = r.shape
+    refuse_grad("wkv6_scan", r, k, v, logw, u)
     if r.device.type != "cuda":
         if traced(r):
             return torch.empty_like(r), r.new_empty((B, H, P, P),

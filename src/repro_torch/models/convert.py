@@ -46,9 +46,15 @@ def _convert(tree, device):
 
 
 def params_from_jax(numpy_tree: dict, cfg: ArchConfig,
-                    device: str | torch.device = "cuda") -> dict:
-    """The port's parameters from the reference's (numpy) pytree."""
+                    device: str | torch.device = "cuda", *,
+                    masters: bool = False) -> dict:
+    """The port's parameters from the reference's (numpy) pytree.  With
+    ``masters`` (training) every leaf keeps the reference's dtype, as
+    ``Model.init_params(masters=True)`` makes them, and the model casts
+    at use, as the reference does."""
     params = _convert(numpy_tree, device)
+    if masters:
+        return params
     cdt = dtype_of(cfg.compute_dtype)
     for path in PROJECTIONS[cfg.family]:
         w = params

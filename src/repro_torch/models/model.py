@@ -16,13 +16,25 @@ cross-attention to the encoder's output, then the MLP.  The frontends
 are stubs, as in the reference: the caller supplies the patches or
 frames.  Entry points are functions of (params, batch[, cache]) as in
 the reference.
+
+Training: ``loss`` is the reference's masked next-token loss, with each
+layer body rematerialized under ``remat`` (``torch.utils.checkpoint``,
+or a selective checkpoint that keeps the matmul outputs under the
+config's ``remat_policy="dots"``), and ``init_params(masters=True)``
+makes every leaf in the parameter dtype, as the reference's optimizer
+keeps them.  The kernels have no backward: a loss through the fused MLP
+or the scan kernels raises under grad, as ``jax.grad`` fails through the
+reference's Pallas kernels, and runs under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig
 from ..sharding.rules import map_with_paths
@@ -55,12 +67,35 @@ PROJECTIONS = {
     "hybrid": _SSM + tuple(("shared_block",) + w for w in _ATTN_MLP),
 }
 
+# the products remat_policy="dots" keeps (jax's
+# dots_with_no_batch_dims_saveable): 2-D matmuls, which every projection
+# lowers to; batched products (attention's einsums, the experts) are
+# recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
 
 def index_tree(tree: dict, i: int) -> dict:
     """Every leaf of a stacked tree indexed at axis 0 (views, no copies):
     one layer's parameters."""
     return {k: index_tree(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def unbind_tree(tree: dict) -> list[dict]:
+    """Every layer's parameters of a stacked tree: each leaf unbound once
+    on axis 0 (views, no copies).  Under autograd one unbind's backward
+    writes the stacked gradient once; indexing every layer
+    (``index_tree``) would fill a zero stacked gradient a layer and add
+    them up."""
+    parts = {k: unbind_tree(v) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
 def tree_to(params: dict, device) -> dict:
@@ -83,7 +118,8 @@ class Model:
 
     # ------------------------------------------------------------ init
     def init_params(self, generator: torch.Generator,
-                    device: str | torch.device = "cuda") -> dict:
+                    device: str | torch.device = "cuda", *,
+                    masters: bool = False) -> dict:
         """Random weights made on ``device`` from ``generator`` (which
         must live on that device), with the reference's scales: normal
         projections with std 1/sqrt(d_in), embeddings with std 0.02,
@@ -92,7 +128,11 @@ class Model:
         Mamba2 conv taps with std 1/sqrt(K), A_log 0, D 1, dt_bias 0.
         Projection weights, expert banks and shared experts are made in
         the compute dtype, the MoE router, the bonus, decay bias, A_log,
-        D and dt_bias in fp32, the rest in the parameter dtype.
+        D and dt_bias in fp32, the rest in the parameter dtype.  With
+        ``masters`` (training) the projections, banks and shared experts
+        are made in the parameter dtype too, as the reference keeps every
+        leaf, and every use casts them (``layers.dense``, the fused MLP,
+        the experts' upcast).
 
         On a tensor-parallel model each leaf is drawn whole and at once
         cut to this rank's slice (``tp.place``), so the whole tensor is
@@ -102,6 +142,8 @@ class Model:
         weights."""
         cfg = self.cfg
         pdt, cdt = L.dtype_of(cfg.param_dtype), L.dtype_of(cfg.compute_dtype)
+        if masters:
+            cdt = pdt
         f32 = torch.float32
         n, d = cfg.layers, cfg.d_model
         place = self.tp.place if self.tp is not None else None
@@ -258,71 +300,101 @@ class Model:
         tensor-parallel ranks where that projection is split by rows."""
         return x if self.tp is None else self.tp.reduce(x, path)
 
+    def _ckpt(self, fn):
+        """``fn`` rematerialized in training: under grad its activations
+        are recomputed in the backward instead of kept (the reference's
+        ``jax.checkpoint``); with ``remat_policy="dots"`` the matmul
+        outputs are kept and the rest recomputed.  Without grad (serving,
+        the loss under ``no_grad``) ``fn`` runs as it is."""
+        kw = {}
+        if self.cfg.remat_policy == "dots":
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _save_dots)
+
+        def run(*args):
+            if not torch.is_grad_enabled():
+                return fn(*args)
+            return checkpoint(fn, *args, use_reentrant=False, **kw)
+        return run
+
     def _attn_block(self, lp, x, positions, *, block="layers",
-                    window_flag=None, cache=None, cache_index=None):
+                    window_flag=None, cache=None, cache_index=None,
+                    remat=False):
         """Pre-norm attention and gated MLP (or mixture of experts) with
         residuals: a dense, VLM or MoE layer, or the hybrid's shared
         block (``block`` is the path of its parameters).  The config's
         window applies unless ``window_flag`` is False (a global layer
         of an alternating stack), and its attention softcap to every
-        layer.  ``cache`` {"k", "v"} is updated in place.  The MoE
-        layer's aux loss is a training term; serving drops it.  On a
-        tensor-parallel rank the attention runs the rank's heads and the
-        MLP its share of d_ff (the MoE its experts), and one all_reduce
-        after each sums the partial outputs."""
+        layer.  ``cache`` {"k", "v"} is updated in place.  Returns (x,
+        aux): the MoE layer's load-balancing loss, None for the others.
+        On a tensor-parallel rank the attention runs the rank's heads and
+        the MLP its share of d_ff (the MoE its experts), and one
+        all_reduce after each sums the partial outputs.  With ``remat``
+        the block is rematerialized (``_ckpt``; training passes no
+        cache)."""
         cfg = self.cfg
-        h, _ = L.attention_apply(
-            lp["attn"], L.apply_norm(lp["ln1"], x, cfg.norm),
-            **self._heads(f"{block}/attn"),
-            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-            q_positions=positions, causal=True, window=cfg.window,
-            window_active=window_flag, softcap=cfg.attn_softcap,
-            cache=cache, cache_index=cache_index)
-        x = x + self._reduce(h, f"{block}/attn/wo/w")
-        y = L.apply_norm(lp["ln2"], x, cfg.norm)
-        if "moe" in lp:
-            h, _ = MOE.moe_apply(lp["moe"], cfg, y, tp=self.tp)
-        else:
-            h = self._reduce(L.mlp_apply(lp["mlp"], y,
-                                         use_fused=cfg.fused_mlp),
-                             f"{block}/mlp/wd/w")
-        return x + h
+
+        def body(lp, x):
+            h, _ = L.attention_apply(
+                lp["attn"], L.apply_norm(lp["ln1"], x, cfg.norm),
+                **self._heads(f"{block}/attn"),
+                head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+                q_positions=positions, causal=True, window=cfg.window,
+                window_active=window_flag, softcap=cfg.attn_softcap,
+                cache=cache, cache_index=cache_index)
+            x = x + self._reduce(h, f"{block}/attn/wo/w")
+            y = L.apply_norm(lp["ln2"], x, cfg.norm)
+            if "moe" in lp:
+                h, aux = MOE.moe_apply(lp["moe"], cfg, y, tp=self.tp)
+            else:
+                h, aux = self._reduce(L.mlp_apply(lp["mlp"], y,
+                                                  use_fused=cfg.fused_mlp),
+                                      f"{block}/mlp/wd/w"), None
+            return x + h, aux
+        return (self._ckpt(body) if remat else body)(lp, x)
 
     def _forward_stack(self, params, x, positions, *, caches=None,
-                       cache_index=None):
+                       cache_index=None, remat=False):
         """Run the layers in order.  caches: the model's layer caches
         (``init_cache(...)["layers"]``), updated in place, or None.  With
         ``cache_index`` None (a prefill) the recurrent layers start from
         a zero state and shift and their caches are only written: a
         fresh cache's zeros are passed down as None, so the scans can
-        take their kernels (B3, B4), as ``use_pallas_scan`` means."""
+        take their kernels (B3, B4), as ``use_pallas_scan`` means.
+        Returns (x, aux): the sum of the MoE layers' load-balancing
+        losses (0 for the other families), as the reference's scan sums
+        them.  ``remat`` rematerializes each layer body."""
         cfg = self.cfg
         fam = cfg.family
+        aux = x.new_zeros((), dtype=torch.float32)
         if fam in ("dense", "moe", "vlm"):
-            for i in range(cfg.layers):
+            for i, lp in enumerate(unbind_tree(params["layers"])):
                 cache = (None if caches is None
                          else {"k": caches["k"][i], "v": caches["v"][i]})
                 # gemma2's alternation: even layers local, odd global
                 wf = (i % 2 == 0) if cfg.alt_local_global else None
-                x = self._attn_block(index_tree(params["layers"], i), x,
-                                     positions, window_flag=wf, cache=cache,
-                                     cache_index=cache_index)
-            return x
+                x, a = self._attn_block(
+                    lp, x, positions,
+                    window_flag=wf, cache=cache, cache_index=cache_index,
+                    remat=remat)
+                if a is not None:
+                    aux = aux + a
+            return x, aux
         if fam == "rwkv":
-            return self._rwkv_stack(params, x, caches, cache_index)
-        return self._ssm_stack(params, x, positions, caches, cache_index)
+            return self._rwkv_stack(params, x, caches, cache_index,
+                                    remat), aux
+        return self._ssm_stack(params, x, positions, caches, cache_index,
+                               remat), aux
 
-    def _rwkv_stack(self, params, x, caches, cache_index):
+    def _rwkv_stack(self, params, x, caches, cache_index, remat=False):
         """RWKV-6 layers; on a tensor-parallel rank the time mix runs the
         rank's heads and the channel mix its share of d_ff, one
         all_reduce after each (``TensorParallel``)."""
         cfg = self.cfg
         decode = cache_index is not None
         heads = None if self.tp is None else self.tp.rwkv_heads
-        for i in range(cfg.layers):
-            lp = index_tree(params["layers"], i)
-            carry = (index_tree(caches, i) if caches is not None and decode
-                     else {})
+
+        def body(lp, x, carry):
             h, (state, tshift) = RW.rwkv_time_apply(
                 lp["time"], cfg, L.apply_norm(lp["ln1"], x, cfg.norm),
                 state=carry.get("state"), shift=carry.get("tshift"),
@@ -332,14 +404,21 @@ class Model:
                 lp["chan"], cfg, L.apply_norm(lp["ln2"], x, cfg.norm),
                 shift=carry.get("cshift"),
                 reduce=lambda v: self._reduce(v, "layers/chan/wv/w"))
-            x = x + h
+            return x + h, state, tshift, cshift
+        if remat:
+            body = self._ckpt(body)
+        for i, lp in enumerate(unbind_tree(params["layers"])):
+            carry = (index_tree(caches, i) if caches is not None and decode
+                     else {})
+            x, state, tshift, cshift = body(lp, x, carry)
             if caches is not None:
                 caches["state"][i].copy_(state)
                 caches["tshift"][i].copy_(tshift)
                 caches["cshift"][i].copy_(cshift)
         return x
 
-    def _ssm_stack(self, params, x, positions, caches, cache_index):
+    def _ssm_stack(self, params, x, positions, caches, cache_index,
+                   remat=False):
         """Mamba2 layers in groups of ``attn_every``; in the hybrid, the
         shared block after each group, with that group's KV cache."""
         cfg = self.cfg
@@ -347,18 +426,23 @@ class Model:
         shared = params.get("shared_block")
         decode = cache_index is not None
         heads = None if self.tp is None else self.tp.ssm_heads
+
+        def body(lp, x, state, conv):
+            h, (state, conv) = SSM.ssm_apply(
+                lp["ssm"], cfg, L.apply_norm(lp["ln"], x, cfg.norm),
+                state=state, conv_state=conv, decode=decode, heads=heads)
+            return x + self._reduce(h, "layers/ssm/out_proj/w"), state, conv
+        if remat:
+            body = self._ckpt(body)
+        layers = unbind_tree(params["layers"])
         for g in range(cfg.layers // period):
             for j in range(period):
-                lp = index_tree(params["layers"], g * period + j)
                 state = conv = None
                 if caches is not None and decode:
                     state = caches["ssm"]["state"][g, j]
                     conv = caches["ssm"]["conv"][g, j]
-                h, (state, conv) = SSM.ssm_apply(
-                    lp["ssm"], cfg, L.apply_norm(lp["ln"], x, cfg.norm),
-                    state=state, conv_state=conv, decode=decode,
-                    heads=heads)
-                x = x + self._reduce(h, "layers/ssm/out_proj/w")
+                x, state, conv = body(layers[g * period + j], x, state,
+                                      conv)
                 if caches is not None:
                     caches["ssm"]["state"][g, j].copy_(state)
                     caches["ssm"]["conv"][g, j].copy_(conv)
@@ -366,45 +450,47 @@ class Model:
                 cache = (None if caches is None
                          else {"k": caches["attn"]["k"][g],
                                "v": caches["attn"]["v"][g]})
-                x = self._attn_block(shared, x, positions,
-                                     block="shared_block", cache=cache,
-                                     cache_index=cache_index)
+                x, _ = self._attn_block(shared, x, positions,
+                                        block="shared_block", cache=cache,
+                                        cache_index=cache_index,
+                                        remat=remat)
         return x
 
     # --------------------------------------------------- encoder-decoder
-    def _encode(self, params, enc_embeds):
+    def _encode(self, params, enc_embeds, remat=False):
         """The encoder over frame embeddings (B, F, d): non-causal
         self-attention, then the MLP (unfused, as the reference calls
         it), then the encoder's norm.  On a tensor-parallel rank every
         rank ends with the whole output, after its all_reduces."""
         cfg = self.cfg
         pos = torch.arange(enc_embeds.shape[1], device=enc_embeds.device)
-        x = enc_embeds
-        for i in range(cfg.encoder_layers):
-            lp = index_tree(params["encoder"], i)
+
+        def body(lp, x):
             h, _ = L.attention_apply(
                 lp["attn"], L.apply_norm(lp["ln1"], x, cfg.norm),
                 **self._heads("encoder/attn"),
                 head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
                 q_positions=pos, causal=False)
             x = x + self._reduce(h, "encoder/attn/wo/w")
-            x = x + self._reduce(L.mlp_apply(
+            return x + self._reduce(L.mlp_apply(
                 lp["mlp"], L.apply_norm(lp["ln2"], x, cfg.norm)),
                 "encoder/mlp/wd/w")
+        if remat:
+            body = self._ckpt(body)
+        x = enc_embeds
+        for lp in unbind_tree(params["encoder"]):
+            x = body(lp, x)
         return L.apply_norm(params["enc_norm"], x, cfg.norm)
 
     def _decode_stack_encdec(self, params, x, enc_out, positions, *,
-                             caches=None, cache_index=None):
+                             caches=None, cache_index=None, remat=False):
         """The decoder: causal self-attention over its KV cache
         (``caches["self"]``, updated in place), cross-attention to
         ``enc_out`` (its keys and values projected again at every step,
         as the reference does), then the MLP (unfused)."""
         cfg = self.cfg
-        for i in range(cfg.layers):
-            lp = index_tree(params["layers"], i)
-            cache = (None if caches is None
-                     else {"k": caches["self"]["k"][i],
-                           "v": caches["self"]["v"][i]})
+
+        def body(lp, x, enc_out, cache):
             h, _ = L.attention_apply(
                 lp["attn"], L.apply_norm(lp["ln1"], x, cfg.norm),
                 **self._heads("layers/attn"), head_dim=cfg.head_dim,
@@ -417,10 +503,55 @@ class Model:
                 rope_theta=None, q_positions=positions, causal=False,
                 xkv=enc_out)
             x = x + self._reduce(h, "layers/xattn/wo/w")
-            x = x + self._reduce(L.mlp_apply(
+            return x + self._reduce(L.mlp_apply(
                 lp["mlp"], L.apply_norm(lp["ln2"], x, cfg.norm)),
                 "layers/mlp/wd/w")
+        if remat:
+            body = self._ckpt(body)
+        for i, lp in enumerate(unbind_tree(params["layers"])):
+            cache = (None if caches is None
+                     else {"k": caches["self"]["k"][i],
+                           "v": caches["self"]["v"][i]})
+            x = body(lp, x, enc_out, cache)
         return x
+
+    # -------------------------------------------------------- training
+    def loss(self, params, batch, *, remat: bool = True):
+        """The reference's training loss: mean next-token NLL over the
+        labels >= 0 (-1 masks a position), from an fp32 log_softmax over
+        the padded vocabulary (pad rows masked by ``_lm_logits``), plus
+        0.01 x the layers' summed load-balancing loss for MoE.  ``batch``:
+        ``tokens`` and ``labels`` (B, S) integer tensors, and ``frames``
+        (the encoder's input) or ``patches`` (a prefix) (B, F, d) for the
+        frontends' families.  ``remat`` rematerializes every layer body
+        (``_ckpt``).  Returns a 0-d fp32 tensor."""
+        cfg = self.cfg
+        tokens, labels = batch["tokens"], batch["labels"]
+        cdt = L.dtype_of(cfg.compute_dtype)
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        aux = None
+        if cfg.family == "encdec":
+            enc = self._encode(params, batch["frames"].to(cdt), remat=remat)
+            x = self._decode_stack_encdec(params,
+                                          self._embed_in(params, tokens),
+                                          enc, pos, remat=remat)
+        else:
+            prefix = batch.get("patches") if cfg.family == "vlm" else None
+            x = self._embed_in(params, tokens, prefix)
+            pos = torch.arange(x.shape[1], device=tokens.device)
+            x, aux = self._forward_stack(params, x, pos, remat=remat)
+            if prefix is not None:
+                x = x[:, prefix.shape[1]:]
+        logits = self._lm_logits(params, x)
+        valid = (labels >= 0).to(torch.float32)
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None]
+                            .to(torch.int64))[..., 0]
+        loss = torch.sum(nll * valid) / torch.clamp(torch.sum(valid),
+                                                    min=1.0)
+        if cfg.family != "encdec" and cfg.n_experts:
+            loss = loss + 0.01 * aux
+        return loss
 
     # --------------------------------------------------------- serving
     def prefill(self, params, batch, max_len: int):
@@ -445,7 +576,8 @@ class Model:
             prefix = batch.get("patches") if cfg.family == "vlm" else None
             x = self._embed_in(params, tokens, prefix)
             pos = torch.arange(x.shape[1], device=tokens.device)
-            x = self._forward_stack(params, x, pos, caches=caches["layers"])
+            x, _ = self._forward_stack(params, x, pos,
+                                       caches=caches["layers"])
         return self._lm_logits(params, x[:, -1:]), caches
 
     def decode_step(self, params, cache, tokens, index: int | torch.Tensor):
@@ -479,8 +611,9 @@ class Model:
                                           caches=cache["layers"],
                                           cache_index=index)
         else:
-            x = self._forward_stack(params, x, pos, caches=cache["layers"],
-                                    cache_index=index)
+            x, _ = self._forward_stack(params, x, pos,
+                                       caches=cache["layers"],
+                                       cache_index=index)
         return self._lm_logits(params, x), cache
 
     def init_cache(self, batch: int, max_len: int,

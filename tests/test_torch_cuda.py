@@ -589,3 +589,97 @@ def test_cuda_prefix_graft_and_router_equal_cpu(cuda_device):
     for k in ("k", "v"):
         assert torch.equal(grafted["layers"][k][:, :, :p],
                            fresh["layers"][k][:, :, :p])
+
+
+def _train_steps(model, params, steps, device):
+    from repro_torch.data import DataConfig, RankRows, global_arrays
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import make_train_step
+    step = make_train_step(model, opt.AdamWConfig(lr=3e-3, warmup_steps=2,
+                                                  total_steps=20))
+    state = opt.init_state(params)
+    dc = DataConfig(vocab=model.cfg.vocab, seq_len=16, global_batch=4)
+    losses = []
+    for i in range(steps):
+        params, state, m = step(params, state,
+                                global_arrays(dc, i, RankRows(device)))
+        losses.append(float(m["loss"]))
+    return losses, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-7b", "zamba2-2.7b"])
+def test_cuda_train_steps_equal_cpu(cuda_device, arch):
+    """A smoke config from the CPU's fp32 masters and batches: the first
+    step's loss and every grad leaf on the card within 1e-4 of
+    max(1, the CPU's scale), and three AdamW steps' losses within 1e-4
+    of scale.  (The parameters after the steps are not held to that:
+    AdamW divides each gradient by its own magnitude, so a gradient near
+    zero, summed in another order, moves its parameter by up to the
+    learning rate.)"""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, RankRows, global_arrays
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_to
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import _grads_of
+    model = build_model(get_config(arch, smoke=True))
+    params = model.init_params(torch.Generator().manual_seed(0), "cpu",
+                               masters=True)
+    dc = DataConfig(vocab=model.cfg.vocab, seq_len=16, global_batch=4)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        loss, g = _grads_of(model, tree_to(params, dev),
+                            global_arrays(dc, 0, RankRows(dev)),
+                            microbatches=1, remat=True)
+        grads[str(dev)] = (float(loss), [t.cpu() for t in
+                                         opt.tree_leaves(g)])
+    (l_cpu, g_cpu), (l_card, g_card) = grads.values()
+    assert abs(l_card - l_cpu) <= 1e-4 * max(1.0, abs(l_cpu))
+    for a, b in zip(g_card, g_cpu):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * max(
+            1.0, float(b.abs().max())))
+    cpu, _ = _train_steps(model, params, 3, "cpu")
+    card, _ = _train_steps(model, tree_to(params, cuda_device), 3,
+                           cuda_device)
+    np.testing.assert_allclose(card, cpu, rtol=0,
+                               atol=1e-4 * max(1.0, max(cpu)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,knob", [("llama3-8b", "fused_mlp"),
+                                       ("rwkv6-7b", "use_pallas_scan"),
+                                       ("zamba2-2.7b", "use_pallas_scan")])
+def test_cuda_grad_through_a_kernel_raises_as_on_the_cpu(cuda_device, arch,
+                                                         knob):
+    """Under grad the kernel path raises on CUDA tensors with the CPU's
+    error (no leaf is left without a gradient); under no_grad the
+    kernels' loss equals the plain path's."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.goma_gemm import NoBackwardError
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_to
+    from repro_torch.training import optimizer as opt
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **{knob: True})
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0), "cpu",
+                               masters=True)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 16)))
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    errors = []
+    for dev in ("cpu", cuda_device):
+        p = opt.tree_map(lambda t: t.detach().requires_grad_(),
+                         tree_to(params, dev))
+        with pytest.raises(NoBackwardError) as e:
+            model.loss(p, {k: v.to(dev) for k, v in batch.items()})
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
+    card = tree_to(params, cuda_device)
+    cbatch = {k: v.to(cuda_device) for k, v in batch.items()}
+    with torch.no_grad():
+        got = model.loss(card, cbatch)
+        want = build_model(dataclasses.replace(cfg, **{knob: False})).loss(
+            card, cbatch)
+    assert abs(float(got) - float(want)) <= 1e-4 * max(1.0, float(want))

@@ -34,7 +34,10 @@ def test_modules_found():
               "capture.trace", "capture.program", "capture.plan",
               "capture.reference", "obs.fidelity", "obs.calibrate",
               "sharding", "sharding.rules", "launch.mesh", "dist.serve",
-              "dist.serve_smoke", "models.parallel"):
+              "dist.serve_smoke", "models.parallel", "data", "data.pipeline",
+              "checkpoint", "checkpoint.ckpt", "training",
+              "training.optimizer", "training.train_step", "training.loop",
+              "training.grad_compression", "launch.train"):
         assert f"repro_torch.{m}" in MODULES
     assert len(MODULES) >= 30
 
@@ -67,7 +70,10 @@ def test_no_source_imports_jax_or_the_reference():
             "capture/reference.py", "obs/fidelity.py",
             "obs/calibrate.py", "sharding/rules.py", "launch/mesh.py",
             "dist/serve.py", "dist/serve_smoke.py",
-            "models/parallel.py"} <= scanned
+            "models/parallel.py", "data/pipeline.py", "checkpoint/ckpt.py",
+            "training/optimizer.py", "training/train_step.py",
+            "training/loop.py", "training/grad_compression.py",
+            "launch/train.py"} <= scanned
 
 
 def test_serve_without_a_card_exits_nonzero():
