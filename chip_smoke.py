@@ -15,7 +15,8 @@ one's launch counts:
   continuous scheduler, on the smoke config (B2; streams equal to the
   static oracle and to the CPU) and at full width (B1 and
   ``goma_combine`` at the slots' and the chunk widths' shapes, and in
-  fp32 every emitted token's logits against a static prefill);
+  fp32 at 4 layers every emitted token's logits against a static
+  prefill);
 - ``rwkv6-7b``: the smoke config (card tokens == CPU tokens) and the
   full width, with the prefill's WKV6 scans through B3;
 - ``zamba2-2.7b``: the smoke config (card tokens == CPU tokens) and the
@@ -23,16 +24,16 @@ one's launch counts:
   block's MLP through B1 and ``goma_combine``;
 - the MoE family (phase 13): the ``deepseek-moe-16b`` and
   ``granite-moe-1b-a400m`` smoke configs (card == CPU, both dispatches,
-  and behind the scheduler), ``deepseek-moe-16b`` at full width
-  statically and behind the scheduler with no GOMA kernel launched, and
-  its fp32 gate at 4 layers;
+  and behind the scheduler), ``deepseek-moe-16b`` at full width and 14
+  of its 28 layers statically and behind the scheduler with no GOMA
+  kernel launched, and its fp32 gate at 4 layers;
 - scale-out (phase 14) on ``llama3-8b``: ``spec_generate`` with an
   n-gram and a model drafter, the scheduler with speculative decoding
   and with a KV prefix cache, the replica router (its fleet planned by
   one donor prewarm with zero solver calls, and a replica killed
   mid-trace) on the smoke config, card == CPU == static oracle; at full
   width two replicas with prefix cache and speculative decoding, B1
-  and ``goma_combine`` at held shapes, and the fp32 gate;
+  and ``goma_combine`` at held shapes, and the fp32 gate at 4 layers;
 - fidelity and calibration (phase 15): the port's ``plan build``
   manifests of llama3-8b's scheduler deployment and zamba2-2.7b's static
   path replayed through B1 in bf16 (exact launch counts per dispatched
@@ -49,7 +50,7 @@ one's launch counts:
   windows on alternate layers, softcaps), ``llava-next-34b`` (a prefix
   of patches) and ``seamless-m4t-medium`` (encoder, cross-attention)
   smoke configs, card == CPU, and gemma2's behind the scheduler; at
-  full width gemma2-27b (8 of its 46 layers) statically (prompts past
+  full width gemma2-27b (4 of its 46 layers) statically (prompts past
   its window, 9 key blocks) and behind the scheduler from an enumerated prewarm, B1 and
   ``goma_combine`` with exact counts at phase-3 shapes, 0 solver calls;
   llava-next-34b statically behind 2880 patches (B1, ``goma_combine``);
@@ -58,7 +59,8 @@ one's launch counts:
 - tensor-parallel serving (phase 18) over 2 and 4 ranks that share the
   card over gloo: the ``llama3-8b`` (B2 at the local d_ff) and
   ``deepseek-moe-16b`` smoke configs card == CPU == one rank, and
-  ``llama3-8b`` at full width from a plan store rank 0 prewarmed (0
+  ``llama3-8b`` at full width and 16 of its 32 layers from a plan store
+  rank 0 prewarmed (0
   solver calls; on every rank B1 and ``goma_combine`` with exact counts
   at the per-rank shapes phase 3 holds, and exactly 2 all-reduces a
   layer and 2 for the split vocabulary a pass), tokens/s, peak memory per
@@ -72,7 +74,7 @@ one's launch counts:
   the fused MLP on and off, deepseek-moe-16b) card == CPU == one rank's
   scheduler == the static oracle, 0 solver calls after rank 0's
   prewarm; at TP 2 a router of 2 replicas == the one-rank router, phase
-  11's deployment at full width and 8 layers from rank 0's capture
+  11's deployment at full width and 4 layers from rank 0's capture
   prewarm (0 solver
   calls and store misses, B1 and ``goma_combine`` with exact counts at
   the per-rank chunk and slot shapes phase 3 holds, the same streams on
@@ -93,7 +95,21 @@ one's launch counts:
   stablelm-1.6b at 2 layers; 2 data-parallel gloo ranks at 4 layers,
   the exact mean (ranks bitwise equal, losses == one rank's) and the
   int8 error-feedback all-reduce (loss gap, bytes, seconds inside
-  ``all_reduce``).
+  ``all_reduce``);
+- sharded training (phase 21): one gloo world of 4 ranks on the card
+  (and one of 2): the smoke configs phases 18 and 19 serve, fp32, three
+  AdamW steps on the meshes (4, 1) and (2, 2) FSDP, (1, 2) and (1, 4)
+  TP against one rank (losses; the gathered parameters; ranks that hold
+  one slice bitwise equal), at (2, 2) their loss without grad through
+  the kernels (B2, B3, B4) == the plain loss and the grad refusal,
+  ``shard_engine(mode="fsdp")``'s tokens == one rank's, and checkpoints
+  saved there restored onto (4, 1) and (1, 4) bitwise;
+  ``stablelm-1.6b`` at 20d's 4 layers in fp32 on (2, 2) FSDP + TP (losses
+  == 20d's one rank, step seconds, peak memory, collectives by kind a
+  rank; the loss without grad through B1 and ``goma_combine`` at a
+  rank's MLP, 2048 x 2816 x 2048 and back, at shapes phase 3 held); its
+  parameters at 2 layers saved on (2, 2) and restored onto (4, 1),
+  bitwise.
 
 Imports nothing of JAX and nothing of the reference package.
 
@@ -123,6 +139,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -172,6 +189,10 @@ RECURRENT = dict(prompt_len=200, smoke_prompt_len=12)
 SCHED_FULL = dict(slots=8, chunk_widths=(8, 32, 128), requests=16,
                   arrival_rate=8.0, prompt_mix=((16, 200, 1.0),),
                   new_tokens=16, cache_len=272)
+# the fp32 gates of phases 11 and 14 replay the trace on the served
+# weights' first layers in fp32 (a depth cut, as phase 13's and 17's
+# gates run: at llama3-8b's 32 layers they took 27.8 and 32.1 s on the H100)
+FP32_GATE_LAYERS = 4
 # the served bf16 MLPs that run B1 and goma_combine: their rows at decode
 # and in the prefill (batch x prompt; the scheduler's slots and chunk
 # widths), and their (d_ff, d_model)
@@ -224,6 +245,9 @@ C7_ROWS = 8
 # depth's fp32 weights, about 68 GB, leave no room)
 MOE_SMOKE = ("deepseek-moe-16b", "granite-moe-1b-a400m")
 MOE_ARCH, MOE_GATE_LAYERS = "deepseek-moe-16b", 4
+# ... served at 14 of its 28 layers (a depth cut: phase 13 took 86.3 s at
+# the 28 on the H100)
+MOE_LAYERS = 14
 # scale-out (phase 14) on llama3-8b's smoke config, fp32, on phase 10's
 # deployment: spec_generate on prompts of 16 tokens with the width ladder
 # 2, 4, 8, the scheduler at window width 4, a shared prefix of 32 tokens
@@ -281,10 +305,11 @@ CATALOG_SMOKE_ROWS = (FULL["batch"] * CATALOG_SMOKE["gemma2_prompt"],
 # batch of 2 prompts of 4160 tokens, past the local layers' window of
 # 4096, and 8 new tokens in a cache of 4176 (9 key blocks of 512) ...
 GEMMA2_FULL = dict(batch=2, prompt_len=4160, new_tokens=8)
-# ... at 8 of its 46 layers (4 local, 4 global), so that the script keeps
+# ... at 4 of its 46 layers (2 local, 2 global), so that the script keeps
 # inside its time limit: the static generate and the scheduler's two
-# replays of the 46 layers took 150-170 s of phase 17
-GEMMA2_LAYERS = 8
+# replays of the 46 layers took 150-170 s of phase 17, of 8 layers 38 s
+# besides the fp32 gate, on the H100
+GEMMA2_LAYERS = 4
 # ... and behind the scheduler: 12 Poisson requests at 8 a second, 10 with
 # prompts of 16-200 tokens and 2 (these ids) of 4150-4200, 16 new tokens,
 # 4 slots, chunks of 8, 32 and 128; a prompt of 4200 pads to 4224
@@ -314,11 +339,13 @@ SERVED_MLPS.update({
 # run gloo (NCCL refuses two ranks on one card), every rank on the model
 # axis.  The smoke configs (llama3-8b's fused MLP, B2 at the local d_ff,
 # and deepseek-moe-16b's experts) at phase 4's batch and prompt; llama3-8b
-# at its published widths at phase 5's, its MLPs (three B1 launches and a
-# goma_combine) at the local d_ff; the fp32 gate at this depth
+# at its published widths and full_layers of its 32 layers (a depth cut:
+# at the 32, TP 2 and TP 4 took 51.7 and 70.4 s of phase 18 on the H100)
+# at phase 5's, its MLPs (three B1 launches and a goma_combine) at the
+# local d_ff; the fp32 gate at gate_layers
 TP_SERVE = dict(worlds=(2, 4), smoke=(("llama3-8b", {"fused_mlp": True}),
                                      ("deepseek-moe-16b", {})),
-                gate_layers=4)
+                full_layers=16, gate_layers=4)
 SERVED_MLPS.update({
     f"llama3-8b TP{n}": ((FULL["batch"], FULL["batch"] * FULL["prompt_len"]),
                          14336 // n, 4096) for n in TP_SERVE["worlds"]})
@@ -343,10 +370,10 @@ TP_REST = dict(
                ("zamba2-2.7b", {"use_pallas_scan": True,
                                 "fused_mlp": True})),
     gate_layers={"llama3-8b": 4, "rwkv6-7b": 4, "zamba2-2.7b": 6},
-    # phase 11's deployment at full_world runs llama3-8b's full width at 8
+    # phase 11's deployment at full_world runs llama3-8b's full width at 4
     # of its 32 layers: its capture prewarm and replay of the 32 took
-    # 60-75 s of phase 19
-    deploy_layers=8)
+    # 60-75 s of phase 19, and of 8 layers 15.4 s of replay
+    deploy_layers=4)
 SERVED_MLPS.update({
     "llama3-8b scheduler TP2": (SERVED_MLPS["llama3-8b scheduler"][0],
                                 14336 // 2, 4096),
@@ -389,6 +416,51 @@ TRAIN_TOL = 1e-4
 # batch x sequence rows, held and timed in phase 3 with cold weights
 SERVED_MLPS["stablelm-1.6b training"] = (
     (TRAIN["batch"] * TRAIN["seq"],), 5632, 2048)
+# sharded training (phase 21), one gloo world of 4 ranks on the card (and
+# one of 2 for the (1, 2) mesh).  21a: the smoke configs that phases 18
+# and 19 serve tensor-parallel, and llama3-8b's widened so that FSDP splits
+# leaves (the rule keeps a leaf under 2**16 elements whole, so at the
+# smoke widths only the data mean reduces), fp32: every rank's reduced
+# gradients of the first batch against its slices of one rank's on the
+# card (within SHARDED_TOL of max(1, max|g|), leaf by leaf), then TRAIN's
+# smoke steps of AdamW on each mesh against one rank on the card from the
+# same masters and batches (losses within SHARDED_TOL of scale; the
+# gathered parameters within SHARDED_PARAM_TOL by the norm of each leaf's
+# difference over max(1, the leaf's norm)), the kernels' loss without grad
+# at (2, 2), shard_engine(mode="fsdp") there, and a (2, 2) checkpoint
+# restored onto (4, 1) and (1, 4); 21b: stablelm-1.6b at
+# 20d's depth and dtype (TRAIN's dp layers, fp32) on (2, 2) FSDP + TP,
+# 20d's steps on the global batch, against 20d's one-rank losses, then its
+# loss without grad through B1 and goma_combine at a rank's MLP
+# (2048 x 2816 x 2048 and back, fp32); 21c: stablelm-1.6b's parameters at
+# reshard_layers layers saved on (2, 2) and restored onto (4, 1)
+SHARDED = dict(
+    smoke=(("llama3-8b", {"fused_mlp": True}), ("deepseek-moe-16b", {}),
+           ("rwkv6-7b", {"use_pallas_scan": True}),
+           ("zamba2-2.7b", {"use_pallas_scan": True, "fused_mlp": True}),
+           ("seamless-m4t-medium", {}), ("llava-next-34b", {}),
+           ("llama3-8b widened", {})),
+    widened={"llama3-8b widened": ("llama3-8b", {"d_ff": 1024,
+                                                 "vocab": 1024})},
+    meshes=(((4, 1), "fsdp"), ((1, 4), "tp"), ((2, 2), "fsdp")),
+    pair=((1, 2), "tp"), serve=("llama3-8b", "rwkv6-7b", "zamba2-2.7b"),
+    saved=("llama3-8b", "zamba2-2.7b"), restore=((4, 1), (1, 4)),
+    mesh=(2, 2), reshard_layers=2)
+SHARDED_TOL = 1e-5
+# the parameters after 3 AdamW steps move further than the losses: AdamW's
+# g / (|g| + eps) turns a roundoff-level gradient's reassociation into a
+# share of the lr on that one element.  Set between the largest sound
+# reading on the card (1.11e-5, rwkv6-7b at (4, 1)) and a planted fault's
+# reading on the CPU (8.95e-5: the FSDP gather's backward summing where
+# the mean belongs, widened llama3-8b at (2, 2), in
+# tests/test_torch_train_sharded.py), which the gradient gate fails by
+# 1e5x; the parameters are nearly blind to a constant factor on a leaf's
+# gradient, so the gradients prove the reductions
+SHARDED_PARAM_TOL = 3e-5
+# 21b's loss without grad: B1 and goma_combine at a (2, 2) rank's rows
+# (global batch x sequence over 2 data ranks) and d_ff (over 2 model
+# ranks), in fp32; held and timed in phase 3 with cold weights
+SHARDED_MLP = (TRAIN["batch"] // 2 * TRAIN["seq"], 5632 // 2, 2048)
 
 
 @contextlib.contextmanager
@@ -586,10 +658,11 @@ def check_b1(shape, dtype, gen, *, timed: bool) -> dict:
             bound_share=bound / row["ms"],
             vs_library=row["ms"] / row["library_ms"],
             device_bound_share=bound / row["device_ms"],
-            device_vs_library=row["device_ms"] / row["library_device_ms"],
-            device_ms_by_slice={
+            device_vs_library=row["device_ms"] / row["library_device_ms"])
+        if dtype == torch.bfloat16:   # the slice width is the bf16 path's
+            row["device_ms_by_slice"] = {
                 n: device_ms(lambda: goma_matmul(a, w(), plan, slice_n=n))
-                for n in SLICE_WIDTHS if plan.block[1] % n == 0})
+                for n in SLICE_WIDTHS if plan.block[1] % n == 0}
         del bs
     return row
 
@@ -1537,9 +1610,10 @@ def sched_full(smi: str, out: pathlib.Path | None, checked: set) -> dict:
     goma_combine), random weights made on the card: SCHED_FULL's trace
     with exact launch counts, every launch at a shape phase 3 held, and
     finite logits; a second replay, timed, with zero solver calls.  Then,
-    with the weights in fp32, the whole trace again: every emitted
-    token's logits row within PATH_TOL of scale of the teacher-forced
-    static prefill of prompt + emitted tokens at B=1, with slots reused.
+    with the weights' first FP32_GATE_LAYERS layers in fp32, the whole
+    trace again: every emitted token's logits row within PATH_TOL of
+    scale of the teacher-forced static prefill of prompt + emitted tokens
+    at B=1, with slots reused.
     With ``out``, sched_full_witnesses reports the bf16 streams' token
     agreement, and one more bf16 replay runs under the profiler."""
     from repro_torch.configs import get_config
@@ -1612,12 +1686,13 @@ def sched_full(smi: str, out: pathlib.Path | None, checked: set) -> dict:
                                          **knobs), smi, out, "profile_sched")
     del eng, sched
 
-    # fp32: the same weights, the same path, the same trace
+    # fp32: the same weights' first layers, the same path, the same trace
     t0 = time.perf_counter()
-    params32 = tree_float(params)
+    params32 = gate_params(params, FP32_GATE_LAYERS)
     del params
     free_device()
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    cfg32 = dataclasses.replace(cfg, layers=FP32_GATE_LAYERS,
+                                compute_dtype="float32")
     model32 = build_model(cfg32)
     clock = TraceClock()
     holder = {}
@@ -1633,7 +1708,8 @@ def sched_full(smi: str, out: pathlib.Path | None, checked: set) -> dict:
         raise AssertionError(f"fp32 replay reused no slot: {slot_of}")
     errs = teacher_forced_errs(model32, params32, trace, results, rows)
     worst = max(max(e) for e in errs.values())
-    print(f"  fp32 ({time.perf_counter() - t0:.1f} s, {len(trace)} requests "
+    print(f"  fp32 at {FP32_GATE_LAYERS} layers ("
+          f"{time.perf_counter() - t0:.1f} s, {len(trace)} requests "
           f"on {len(set(slot_of.values()))} slots, {reused} admissions into "
           f"a used slot; slots {slot_of}): every emitted token's logits row "
           f"vs the teacher-forced static prefill, largest max abs err "
@@ -1938,7 +2014,8 @@ def first_layers(tree: dict, n: int) -> dict:
 
 
 def moe_full(smi: str, out: pathlib.Path | None) -> dict:
-    """deepseek-moe-16b at its published widths, bf16 (banks stored in
+    """deepseek-moe-16b at its published widths and MOE_LAYERS layers,
+    bf16 (banks stored in
     bf16, products in fp32), random weights made on the card: static
     generate (FULL's batch, prompt and new tokens; timed on a second run),
     then phase 11's deployment and trace behind the scheduler: a first
@@ -1955,7 +2032,7 @@ def moe_full(smi: str, out: pathlib.Path | None) -> dict:
     from repro_torch.serving.sched import (ContinuousScheduler, SchedConfig,
                                            TraceClock, replay)
     none = {k: 0 for k in kernel_fns()}
-    cfg = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(get_config(MOE_ARCH), layers=MOE_LAYERS)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init_params(
@@ -2311,8 +2388,9 @@ def scaleout_full(checked: set, store_dir: pathlib.Path) -> dict:
     shape phase 3 held, finite logits; a second fleet on the same store,
     timed; as a bf16 witness (reported, not held) the streams equal to
     the same trace served without spec and prefix cache.  Then in fp32,
-    the same fleet and trace: every emitted token's logits row within
-    PATH_TOL of scale of the teacher-forced static prefill."""
+    on the weights' first FP32_GATE_LAYERS layers, the same fleet and
+    trace: every emitted token's logits row within PATH_TOL of scale of
+    the teacher-forced static prefill."""
     from repro_torch.configs import get_config
     from repro_torch.core import hopper_mapping
     from repro_torch.core.solver import reset_solver_stats, solver_stats
@@ -2444,12 +2522,13 @@ def scaleout_full(checked: set, store_dir: pathlib.Path) -> dict:
           f"{len(streams)} streams equal to the same trace without spec "
           f"and prefix cache")
 
-    # fp32: the same weights, fleet and trace
+    # fp32: the same weights' first layers, fleet and trace
     t0 = time.perf_counter()
-    params32 = tree_float(params)
+    params32 = gate_params(params, FP32_GATE_LAYERS)
     del params
     free_device()
-    model32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"))
+    model32 = build_model(dataclasses.replace(
+        cfg, layers=FP32_GATE_LAYERS, compute_dtype="float32"))
     holder = {}
     rows, _, on_token = capture_emitted_logits(model32, holder)
     router = fleet(params32, model32, on_token=on_token)
@@ -2458,7 +2537,8 @@ def scaleout_full(checked: set, store_dir: pathlib.Path) -> dict:
     del model32.decode_step
     errs = teacher_forced_errs(model32, params32, trace, results, rows)
     worst = max(max(e) for e in errs.values())
-    print(f"  fp32 ({time.perf_counter() - t0:.1f} s): every emitted "
+    print(f"  fp32 at {FP32_GATE_LAYERS} layers ("
+          f"{time.perf_counter() - t0:.1f} s): every emitted "
           f"token's logits row vs the teacher-forced static prefill, "
           f"largest max abs err {worst} (tol {PATH_TOL} x scale)")
     return {"launches": counts, "shapes": shapes,
@@ -3226,8 +3306,8 @@ def full_prompts(cfg) -> np.ndarray:
 
 
 def tp_full_rank(world: int, checked: set, store_dir: str) -> dict:
-    """One rank of llama3-8b at its published widths, bf16, fused MLP
-    on, split over ``world`` ranks: the rank's slices made on the card
+    """One rank of llama3-8b at its published widths and TP_SERVE's
+    full_layers layers, bf16, fused MLP on, split over ``world`` ranks: the rank's slices made on the card
     leaf by leaf from phase 5's seed, the plan store prewarmed from the
     rank's own captured programs (rank 0 first, the others then read
     it), then phase 5's static generate: 0 solver calls, exact launches
@@ -3247,7 +3327,8 @@ def tp_full_rank(world: int, checked: set, store_dir: str) -> dict:
     from repro_torch.planner.store import PlanStore
     from repro_torch.serving import Engine, ServeConfig
     mesh = make_host_mesh(model=world)
-    cfg = dataclasses.replace(get_config(FULL["arch"]), fused_mlp=True)
+    cfg = dataclasses.replace(get_config(FULL["arch"]), fused_mlp=True,
+                              layers=TP_SERVE["full_layers"])
     model = shard_model(build_model(cfg), mesh)
     tp = model.tp
     B, S, new = FULL["batch"], FULL["prompt_len"], FULL["new_tokens"]
@@ -3294,9 +3375,9 @@ def tp_full_rank(world: int, checked: set, store_dir: str) -> dict:
     shapes = held_shapes(seen, counts, checked)
     inside, reduce = [], tp.all_reduce
 
-    def timed_reduce(x):
+    def timed_reduce(x, *kind):
         t = time.perf_counter()
-        y = reduce(x)
+        y = reduce(x, *kind)
         inside.append(time.perf_counter() - t)
         return y
 
@@ -3364,14 +3445,14 @@ def tp_rank(rank: int, world: int, checked: set, store_dir: str) -> dict:
     return out
 
 
-def tp_serve(checked: set, store_root: pathlib.Path, phase5: dict) -> dict:
+def tp_serve(checked: set, store_root: pathlib.Path) -> dict:
     """Phase 18: for each world of TP_SERVE, its ranks spawned over gloo on
     the one card (the kernels built by phase 2, so no rank builds them).
     The smoke configs' tokens card == CPU == the single-rank oracle on
-    every rank; llama3-8b at full width (tp_full_rank) with every rank's
-    gates; the fp32 gate's logits within PATH_TOL of scale of the single
-    rank's.  Reported: tokens/s (TP 1 is phase 5's), peak memory per
-    rank, time per all_reduce, and the bf16 streams against phase 5's."""
+    every rank; llama3-8b at full width and TP_SERVE's full_layers
+    (tp_full_rank) with every rank's gates; the fp32 gate's logits within
+    PATH_TOL of scale of the single rank's.  Reported: tokens/s, peak
+    memory per rank, time per all_reduce."""
     from repro_torch.launch.mesh import run_ranks
     oracle = {arch: smoke_oracle(arch, knobs)
               for arch, knobs in TP_SERVE["smoke"]}
@@ -3404,9 +3485,7 @@ def tp_serve(checked: set, store_root: pathlib.Path, phase5: dict) -> dict:
                      gate_scale=float(want.abs().max()),
                      peak_memory_gib_by_rank=[
                          g["full"]["serve"]["peak_memory_gib"]
-                         for g in ranks],
-                     tokens_agree_with_single_rank=float(
-                         (full["tokens"] == phase5["tokens"]).mean()))
+                         for g in ranks])
         report[world] = serve
         for arch in oracle:
             runs[f"TP{world} {arch} smoke (rank 0)"] = \
@@ -3418,12 +3497,11 @@ def tp_serve(checked: set, store_root: pathlib.Path, phase5: dict) -> dict:
         print(f"  TP {world}: smoke tokens card == cpu == single rank "
               f"({', '.join(oracle)}); smoke all_reduces "
               f"{ {a: ranks[0]['smoke'][a]['all_reduces'] for a in oracle} }")
-        print(f"  TP {world}: llama3-8b full width, tokens "
-              f"{full['tokens'].tolist()} ({serve['tokens_agree_with_single_rank']} "
-              f"equal to phase 5's)")
-        print(f"  TP {world}: {serve['tokens_per_s']} tokens/s (TP 1, phase "
-              f"5: {phase5['serve']['tokens_per_s']}); launches per rank "
-              f"{full['launches']}; {serve['all_reduces_per_pass']} "
+        print(f"  TP {world}: llama3-8b full width at "
+              f"{TP_SERVE['full_layers']} layers, tokens "
+              f"{full['tokens'].tolist()}")
+        print(f"  TP {world}: {serve['tokens_per_s']} tokens/s; launches per "
+              f"rank {full['launches']}; {serve['all_reduces_per_pass']} "
               f"all_reduces a pass, {serve['token_checks']} token checks")
         print(f"  TP {world}: peak memory by rank "
               f"{serve['peak_memory_gib_by_rank']} GiB; made "
@@ -3597,9 +3675,9 @@ def timed_collectives(tp) -> dict:
     def timed(name):
         fn = getattr(tp, name)
 
-        def call(x):
+        def call(x, *kind):
             t = time.perf_counter()
-            y = fn(x)
+            y = fn(x, *kind)
             inside[name] += time.perf_counter() - t
             return y
         return call
@@ -4500,6 +4578,546 @@ def train_dp() -> dict:
     return report
 
 
+# ------------------------------------------------------------- phase 21
+def mesh_of(shape: tuple, rank: int):
+    """A (data, model) mesh description at ``rank``'s coordinates (no
+    process group): the layouts a rank of that mesh computes."""
+    from repro_torch.launch.mesh import HostMesh
+    data, model = shape
+    return HostMesh(shape={"data": data, "model": model},
+                    axis_names=("data", "model"), rank=rank,
+                    coords={"data": rank // model, "model": rank % model})
+
+
+def smoke_rows(cfg, i: int, mesh=None) -> dict:
+    """The smoke steps' batch ``i`` on the card: the whole global batch
+    without ``mesh``, else this rank's rows of it on ``mesh``."""
+    from repro_torch.data import DataConfig, RankRows, global_arrays
+    rows = (RankRows("cuda") if mesh is None else
+            RankRows("cuda", mesh.coords["data"], mesh.shape["data"]))
+    dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN["smoke_seq"],
+                    global_batch=TRAIN["smoke_batch"], seed=SEED)
+    batch = global_arrays(dc, i, rows)
+    if cfg.family in ("encdec", "vlm"):
+        key = "frames" if cfg.family == "encdec" else "patches"
+        batch[key] = torch.zeros((batch["tokens"].shape[0],
+                                  cfg.frontend_len, cfg.d_model),
+                                 device="cuda")
+    return batch
+
+
+def sharded_first_grads(model, params, cfg, mesh=None) -> dict:
+    """path -> the gradient of the first smoke batch as the update takes
+    it, on the host: one rank's on the whole batch without ``mesh``,
+    else this rank's of its rows, reduced over the mesh
+    (``ShardedLayout.reduce_grads``, after the FSDP gather's
+    reduce-scatter in the backward)."""
+    from repro_torch.dist.fsdp import ShardedLayout
+    from repro_torch.sharding.rules import flatten_with_paths
+    from repro_torch.training.train_step import _grads_of
+    _, grads = _grads_of(model, params, smoke_rows(cfg, 0, mesh),
+                         microbatches=1, remat=True)
+    if mesh is not None:
+        grads = ShardedLayout(model).reduce_grads(grads)
+    return {p: g.cpu() for p, g in flatten_with_paths(grads)}
+
+
+def sharded_smoke_steps(model, params, cfg, mesh=None) -> tuple:
+    """TRAIN's smoke steps of jit_train_step on the card at the CPU
+    tests' lr (one rank on the whole batch without ``mesh``, else this
+    rank's rows of it on ``mesh``): (losses, params, the step)."""
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import jit_train_step
+    step = jit_train_step(model, opt.AdamWConfig(
+        lr=3e-3, warmup_steps=2, total_steps=20), mesh=mesh)
+    state = opt.init_state(params)
+    losses = []
+    for i in range(TRAIN["smoke_steps"]):
+        params, state, m = step(params, state, smoke_rows(cfg, i, mesh))
+        losses.append(float(m["loss"]))
+    return losses, params, step
+
+
+def sharded_cfg(name: str):
+    """A SHARDED smoke config by name: an arch's smoke config, or one of
+    SHARDED's widened ones."""
+    from repro_torch.configs import get_config
+    arch, over = SHARDED["widened"].get(name, (name, {}))
+    return dataclasses.replace(get_config(arch, smoke=True), **over)
+
+
+def smoke_masters(name: str):
+    """A SHARDED smoke config's model and fp32 masters, made on the CPU
+    from the seed and moved to the card (every rank and one rank
+    alike)."""
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_to
+    model = build_model(sharded_cfg(name))
+    return model, tree_to(model.init_params(
+        torch.Generator().manual_seed(SEED), "cpu", masters=True), "cuda")
+
+
+def sharded_smoke_rank(shape: tuple, mode: str, checked: set,
+                       root: str) -> dict:
+    """21a on one rank of ``shape`` (a mesh of the whole world): every
+    SHARDED smoke config's reduced gradients of the first batch, then its
+    steps (losses, this rank's slices and the gathered parameters, on the
+    host); at SHARDED's mesh also the
+    kernels' loss without grad against the plain loss (every launch at a
+    shape held against its plain version, here or in phase 3), the grad
+    refusal, shard_engine(mode="fsdp")'s greedy tokens, and a checkpoint
+    of the saved configs into ``root``."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.dist.fsdp import ShardedLayout
+    from repro_torch.dist.serve import shard_engine, shard_model
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_to
+    from repro_torch.serving import Engine
+    from repro_torch.sharding.rules import flatten_with_paths
+    from repro_torch.training import optimizer as opt
+    mesh = make_host_mesh(data=shape[0], model=shape[1])
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for arch, knobs in SHARDED["smoke"]:
+        base, params = smoke_masters(arch)
+        model = shard_model(base, mesh, mode=mode)
+        params = ShardedLayout(model).shard(params)
+        grads = sharded_first_grads(model, params, base.cfg, mesh)
+        losses, params, step = sharded_smoke_steps(model, params, base.cfg,
+                                                   mesh)
+        layout = step.layout
+        run = {"grads": grads, "losses": losses, "comm": step.comm,
+               "local": tree_to(dict(flatten_with_paths(params)), "cpu"),
+               "whole": {p: layout.whole(p, t).cpu()
+                         for p, t in flatten_with_paths(params)}}
+        if shape == SHARDED["mesh"]:
+            kcfg = dataclasses.replace(base.cfg, **knobs)
+            kmodel = shard_model(build_model(kcfg), mesh, mode=mode)
+            batch = smoke_batches(base.cfg, 1, "cuda")[0]
+            rows = TRAIN["smoke_batch"] // mesh.shape["data"]
+            lo = mesh.coords["data"] * rows
+            batch = {k: v[lo:lo + rows] for k, v in batch.items()}
+            reset_launches()
+            seen = {}
+            with torch.no_grad():
+                with recording_shapes(seen):
+                    got = float(kmodel.loss(params, batch))
+                launches = launch_counts()
+                want = float(model.loss(params, batch))
+            held = hold_new_shapes(seen, checked, gen)
+            run.update(kernel_loss=got, plain_loss=want, launches=launches,
+                       shapes=held_shapes(seen, launches, checked),
+                       held=held)
+            if any(launches.values()):
+                run["refusal"] = grad_refusal(kmodel, params, batch)
+            if arch in SHARDED["serve"]:
+                smodel, sparams, prompts, extra, scfg = tp_smoke_setup(
+                    arch, knobs)
+                eng = Engine(smodel, tree_to(sparams, "cuda"), scfg)
+                shard_engine(eng, model_axis=shape[1], data_axis=shape[0],
+                             mode="fsdp")
+                run["tokens"] = eng.generate(prompts, extra_batch=extra)
+            if arch in SHARDED["saved"]:
+                CheckpointManager(f"{root}/{arch}", async_save=False,
+                                  layout=layout).save(
+                    TRAIN["smoke_steps"],
+                    (params, opt.init_state(params)))
+        out[arch] = run
+        free_device()
+    if shape == SHARDED["mesh"]:
+        out["restored"] = {}
+        for rshape in SHARDED["restore"]:
+            rmesh = make_host_mesh(data=rshape[0], model=rshape[1])
+            for arch in SHARDED["saved"]:
+                base, like = smoke_masters(arch)
+                rmodel = shard_model(base, rmesh, mode="fsdp")
+                rlayout = ShardedLayout(rmodel)
+                like = rlayout.shard(like)
+                (got, _), step0 = CheckpointManager(
+                    f"{root}/{arch}", layout=rlayout).restore(
+                    (like, opt.init_state(like)))
+                out["restored"][rshape, arch] = {
+                    "step": step0, "whole": {
+                        p: rlayout.whole(p, t).cpu()
+                        for p, t in flatten_with_paths(got)}}
+    return out
+
+
+def sharded_full_rank(rank: int) -> dict:
+    """21b on one rank of SHARDED's (2, 2) mesh: stablelm-1.6b at TRAIN's
+    dp layers in fp32, FSDP + TP, TRAIN's dp steps of the global batch
+    (each step's loss, seconds and collectives by kind), the peak
+    memory; then the loss without grad through the fused MLP (B1 and
+    goma_combine at this rank's MLP) and the plain loss, fp32."""
+    from repro_torch.data import RankRows, global_arrays
+    from repro_torch.dist.serve import shard_model
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training.train_step import jit_train_step
+    free_device()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_host_mesh(data=SHARDED["mesh"][0], model=SHARDED["mesh"][1])
+    cfg, base = full_model(TRAIN["dp_layers"],
+                           compute_dtype=TRAIN["dp_dtype"])
+    model = shard_model(base, mesh, mode="fsdp")
+    t0 = time.perf_counter()
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), "cuda",
+        masters=True)
+    from repro_torch.training import optimizer as opt
+    state = opt.init_state(params)
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    step = jit_train_step(model, full_optimizer(), mesh=mesh, remat=True)
+    data = full_data(cfg)
+    rows = RankRows("cuda", mesh.coords["data"], mesh.shape["data"])
+    steps = []
+    for i in range(TRAIN["dp_steps"]):
+        batch = global_arrays(data, i, rows)
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        loss = float(m["loss"])
+        steps.append({"loss": loss, "step_s": time.perf_counter() - t0,
+                      "comm": step.comm})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_local = sum(t.numel() for t in leaves(params))
+    del state
+    free_device()
+    kmodel = shard_model(dataclasses.replace(base, cfg=dataclasses.replace(
+        cfg, fused_mlp=True)), mesh, mode="fsdp")
+    batch = global_arrays(data, 0, rows)
+    reset_launches()
+    seen = {}
+    with torch.no_grad():
+        with recording_shapes(seen):
+            got = float(kmodel.loss(params, batch))
+        launches = launch_counts()
+        want = float(model.loss(params, batch))
+    return {"steps": steps, "peak_memory_gib": peak, "made_s": made,
+            "local_parameters": n_local, "coords": dict(mesh.coords),
+            "kernel_loss": got, "plain_loss": want, "launches": launches,
+            "seen": seen}
+
+
+def reshard_full_rank(rank: int, root: str) -> dict:
+    """21c on one rank: stablelm-1.6b's fp32 parameters at SHARDED's
+    reshard layers, made on (2, 2), saved there (one checkpoint of whole
+    leaves, rank 0 writing), restored onto (4, 1); whether this rank's
+    restored slices are bitwise its (4, 1) block of the parameters drawn
+    again whole from the seed, and the seconds of the save and the
+    restore."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.dist.fsdp import ShardedLayout
+    from repro_torch.dist.serve import shard_model
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.rules import flatten_with_paths
+    free_device()
+    _, base = full_model(SHARDED["reshard_layers"])
+    mesh = make_host_mesh(data=SHARDED["mesh"][0], model=SHARDED["mesh"][1])
+    model = shard_model(base, mesh, mode="fsdp")
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), "cuda",
+        masters=True)
+    layout = ShardedLayout(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr = CheckpointManager(root, async_save=True, layout=layout)
+    mgr.save(1, params)
+    mgr.wait()
+    save_s = time.perf_counter() - t0
+    del params
+    free_device()
+    rmesh = make_host_mesh(data=4, model=1)
+    rmodel = shard_model(base, rmesh, mode="fsdp")
+    rlayout = ShardedLayout(rmodel)
+    like = rmodel.init_params(torch.Generator(), "meta", masters=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, step0 = CheckpointManager(root, layout=rlayout).restore(
+        like, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    whole = dict(flatten_with_paths(base.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), "cuda",
+        masters=True)))
+    equal = all(torch.equal(t, rlayout.place(p, whole[p]))
+                for p, t in flatten_with_paths(got))
+    return {"save_s": save_s, "restore_s": restore_s, "step": step0,
+            "equal": equal}
+
+
+def sharded_rank(rank: int, checked: set, root: str) -> dict:
+    """Everything phase 21 runs on one rank of the world of 4."""
+    out = {"smoke": {}}
+    t0 = time.perf_counter()
+    for shape, mode in SHARDED["meshes"]:
+        out["smoke"][shape] = sharded_smoke_rank(shape, mode, checked,
+                                                 f"{root}/smoke")
+    out["smoke_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["full"] = sharded_full_rank(rank)
+    out["full_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["reshard"] = reshard_full_rank(rank, f"{root}/full")
+    out["reshard_s"] = time.perf_counter() - t0
+    return out
+
+
+def sharded_pair_rank(rank: int, checked: set, root: str) -> dict:
+    """21a's (1, 2) mesh, on one rank of a world of 2."""
+    shape, mode = SHARDED["pair"]
+    return sharded_smoke_rank(shape, mode, checked, root)
+
+
+def rank_places(shape: tuple, cfg) -> list:
+    """Each rank of ``shape``'s placement of a whole leaf: (path, whole)
+    -> the rank's slice under its TP and FSDP layouts."""
+    from repro_torch.dist.fsdp import FullyShardedData
+    from repro_torch.models import build_model
+    from repro_torch.models.parallel import TensorParallel
+    places = []
+    for r in range(math.prod(shape)):
+        m = build_model(cfg)
+        lay = dataclasses.replace(m, tp=TensorParallel(m, mesh_of(shape, r)))
+        lay.fsdp = FullyShardedData(lay)
+        places.append(lambda path, t, lay=lay:
+                      lay.fsdp.place(path, lay.tp.place(path, t)))
+    return places
+
+
+def grad_gap(ranks: list, want: dict, places: list) -> float:
+    """The largest gap of a rank's reduced gradients from its slices of
+    one rank's (``want``), each leaf's over max(1, max|g|) of its whole
+    gradient."""
+    return max(float((got["grads"][path] - place(path, g)).abs().max())
+               / max(1.0, float(g.abs().max()))
+               for got, place in zip(ranks, places)
+               for path, g in want.items())
+
+
+def same_slices(ranks: list, places: list) -> int:
+    """Raise unless ranks whose layouts place the same block of a leaf
+    (an index probe placed by each rank's layout) hold it bitwise
+    equal; the pairs compared."""
+    pairs = 0
+    for path, whole in ranks[0]["whole"].items():
+        probe = torch.arange(whole.numel(), dtype=torch.float64).reshape(
+            whole.shape)
+        blocks = [place(path, probe) for place in places]
+        for r in range(1, len(ranks)):
+            for q in range(r):
+                if blocks[r].shape == blocks[q].shape and \
+                        torch.equal(blocks[r], blocks[q]):
+                    pairs += 1
+                    if not torch.equal(ranks[r]["local"][path],
+                                       ranks[q]["local"][path]):
+                        raise AssertionError(
+                            f"ranks {q} and {r} hold the same block of "
+                            f"{path} with other bits")
+    return pairs
+
+
+def sharded_training(checked: set, smi: str, store_root: pathlib.Path,
+                     one_rank_losses: list) -> dict:
+    """Phase 21: 21a-21c (SHARDED), the ranks over gloo on the one card,
+    each part's seconds printed; ``one_rank_losses``: 20d's losses of one
+    rank on the whole batch (the same seed, layers and steps)."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.model import tree_to
+    from repro_torch.sharding.rules import flatten_with_paths
+    report, runs, shapes = {"device": smi}, {}, {}
+    t0 = time.perf_counter()
+    # one rank on the card: each smoke config's first gradients and steps,
+    # and the serving oracle on the CPU
+    one = {}
+    for arch, knobs in SHARDED["smoke"]:
+        model, params = smoke_masters(arch)
+        grads = sharded_first_grads(model, params, model.cfg)
+        losses, params, _ = sharded_smoke_steps(model, params, model.cfg)
+        one[arch] = (losses, tree_to(dict(flatten_with_paths(params)),
+                                     "cpu"), grads)
+    oracle = {arch: smoke_oracle(arch, knobs) for arch, knobs
+              in SHARDED["smoke"] if arch in SHARDED["serve"]}
+    free_device()
+    t1 = time.perf_counter()
+    # the world of 2 runs beside the world of 4 (its smoke configs take
+    # little of the card; each spawn costs seconds)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        pending = pool.submit(run_ranks, sharded_pair_rank, 2, checked,
+                              str(store_root / "pair"), timeout_s=600)
+        world = run_ranks(sharded_rank, 4, checked,
+                          str(store_root / "world"), timeout_s=900)
+        pair = pending.result()
+    report["seconds_parts"] = {
+        "one_rank_references": t1 - t0,
+        "worlds_of_2_and_4": time.perf_counter() - t1,
+        "21a_in_world_of_4": world[0]["smoke_s"],
+        "21b": world[0]["full_s"], "21c": world[0]["reshard_s"]}
+    print(f"  phase 21's parts, s: {report['seconds_parts']}")
+    smoke = {SHARDED["pair"][0]: pair}
+    smoke.update({shape: [r["smoke"][shape] for r in world]
+                  for shape, _ in SHARDED["meshes"]})
+    rows, faults = {}, []
+    for shape, ranks in smoke.items():
+        for arch, knobs in SHARDED["smoke"]:
+            losses, params, grads = one[arch]
+            got = [r[arch] for r in ranks]
+            places = rank_places(shape, sharded_cfg(arch))
+            g_gap = grad_gap(got, grads, places)
+            if not g_gap <= SHARDED_TOL:
+                faults.append(f"{arch} on {shape}: reduced gradients "
+                              f"{g_gap} of max(1, max|g|) from one rank's "
+                              f"slices")
+            scale = max(1.0, max(map(abs, losses)))
+            loss_gap = max(abs(a - b) for g in got
+                           for a, b in zip(g["losses"], losses))
+            param_gap = max(
+                float(torch.linalg.vector_norm(g["whole"][p] - w))
+                / max(1.0, float(torch.linalg.vector_norm(w)))
+                for g in got for p, w in params.items())
+            if not (loss_gap <= SHARDED_TOL * scale
+                    and param_gap <= SHARDED_PARAM_TOL):
+                faults.append(
+                    f"{arch} on {shape}: losses {got[0]['losses']} vs one "
+                    f"rank's {losses} (gap {loss_gap}), parameters "
+                    f"{param_gap} of scale from one rank's")
+            try:
+                pairs = same_slices(got, places)
+            except AssertionError as e:
+                faults.append(f"{arch} on {shape}: {e}")
+                pairs = None
+            row = {"losses": got[0]["losses"], "grad_gap": g_gap,
+                   "loss_gap": loss_gap,
+                   "param_gap": param_gap, "same_slice_pairs": pairs,
+                   "comm_calls": {k: v["calls"]
+                                  for k, v in got[0]["comm"].items()}}
+            if shape == SHARDED["mesh"]:
+                k = got[0]
+                gap = abs(k["kernel_loss"] - k["plain_loss"])
+                if not gap <= TRAIN_TOL * max(1.0, abs(k["plain_loss"])):
+                    faults.append(f"{arch} on {shape}: kernel-path loss "
+                                  f"{k['kernel_loss']} != plain "
+                                  f"{k['plain_loss']}")
+                if any(k["launches"].values()) and not k.get("refusal"):
+                    faults.append(f"{arch}: the kernel path ran under "
+                                  f"grad")
+                if arch in oracle:
+                    for r, g in enumerate(got):
+                        if not np.array_equal(g["tokens"], oracle[arch]):
+                            faults.append(
+                                f"{arch} shard_engine(mode='fsdp') rank "
+                                f"{r}: {g['tokens'].tolist()} != one "
+                                f"rank's {oracle[arch].tolist()}")
+                row.update(kernel_loss_gap=gap, launches=k["launches"],
+                           held=k["held"], refusal=k.get("refusal"))
+                if arch in oracle:
+                    row["fsdp_tokens"] = g["tokens"].tolist()
+                name = f"sharded training {arch} smoke {shape}, loss " \
+                       f"without grad (rank 0)"
+                runs[name], shapes[name] = k["launches"], k["shapes"]
+            rows[f"{arch} {shape}"] = row
+    restored = {}
+    for (rshape, arch), r0 in world[0]["smoke"][SHARDED["mesh"]][
+            "restored"].items():
+        saved = smoke[SHARDED["mesh"]][0][arch]["whole"]
+        for r in world:
+            got = r["smoke"][SHARDED["mesh"]]["restored"][rshape, arch]
+            if got["step"] != TRAIN["smoke_steps"] or not all(
+                    torch.equal(got["whole"][p], w)
+                    for p, w in saved.items()):
+                faults.append(f"{arch}: the (2, 2) checkpoint restored "
+                              f"onto {rshape} differs")
+        restored[f"{arch} {rshape}"] = "bitwise equal"
+    report["smoke"] = {"rows": rows, "restored": restored}
+    for name, row in rows.items():
+        print(f"  21a {name}: gradients {row['grad_gap']:.3g} of scale from "
+              f"one rank's slices; losses {row['losses']} (gap "
+              f"{row['loss_gap']:.3g}, parameters {row['param_gap']:.3g} "
+              f"of scale), "
+              f"{row['same_slice_pairs']} rank pairs hold one slice bitwise"
+              + (f"; kernel loss gap {row['kernel_loss_gap']:.3g}, "
+                 f"launches "
+                 f"{ {k: v for k, v in row['launches'].items() if v} }"
+                 if "launches" in row else "")
+              + (f"; shard_engine(mode='fsdp') tokens == one rank's on "
+                 f"every rank: {row['fsdp_tokens']}"
+                 if "fsdp_tokens" in row else ""))
+    print(f"  21a checkpoints (2, 2) -> {restored}")
+    if faults:
+        raise AssertionError("21a: " + "; ".join(faults))
+    # 21b
+    full = [r["full"] for r in world]
+    scale = max(1.0, max(map(abs, one_rank_losses)))
+    losses = [s["loss"] for s in full[0]["steps"]]
+    gap = max(abs(a - b) for a, b in zip(losses, one_rank_losses))
+    if any([s["loss"] for s in f["steps"]] != losses for f in full) or \
+            not gap <= TRAIN_TOL * scale:
+        raise AssertionError(f"21b: losses {losses} vs one rank's "
+                             f"{one_rank_losses}")
+    k = full[0]
+    launches = k["launches"]
+    expect = {"goma_matmul": 3 * TRAIN["dp_layers"], "goma_fused_matmul": 0,
+              "goma_combine": TRAIN["dp_layers"], "wkv6_scan": 0,
+              "ssd_scan": 0}
+    if any(f["launches"] != expect for f in full):
+        raise AssertionError(f"21b: the loss without grad launched "
+                             f"{[f['launches'] for f in full]}, not {expect}")
+    name = f"sharded training {TRAIN['arch']} (2, 2), loss without grad " \
+           f"(rank 0)"
+    runs[name] = launches
+    shapes[name] = held_shapes(k["seen"], launches, checked)
+
+    def by_kind(f, i):
+        return {kind: {"calls": v["calls"], "bytes": v["bytes"],
+                       "seconds": v["seconds"]}
+                for kind, v in f["steps"][i]["comm"].items()}
+    report["full"] = {
+        "losses": losses, "one_rank_losses": one_rank_losses,
+        "loss_gap": gap, "step_seconds_by_rank": [
+            [s["step_s"] for s in f["steps"]] for f in full],
+        "peak_memory_gib_by_rank": [f["peak_memory_gib"] for f in full],
+        "local_parameters_by_rank": [f["local_parameters"] for f in full],
+        "made_s_by_rank": [f["made_s"] for f in full],
+        "collectives_last_step_by_rank": [by_kind(f, -1) for f in full],
+        "kernel_loss": k["kernel_loss"], "plain_loss": k["plain_loss"],
+        "fp32_kernel_loss_gap": abs(k["kernel_loss"] - k["plain_loss"]),
+        "launches": launches, "seconds": world[0]["full_s"]}
+    rf = report["full"]
+    print(f"  21b {TRAIN['arch']} at {TRAIN['dp_layers']} layers, fp32, "
+          f"(2, 2) FSDP + TP on {smi}: losses {losses} (one rank "
+          f"{one_rank_losses}, gap {gap:.3g}); step seconds by rank "
+          f"{rf['step_seconds_by_rank']}; peak GiB by rank "
+          f"{rf['peak_memory_gib_by_rank']}; local parameters "
+          f"{rf['local_parameters_by_rank']}")
+    for r, c in enumerate(rf["collectives_last_step_by_rank"]):
+        print(f"  21b rank {r} collectives in step {TRAIN['dp_steps']} "
+              f"(gloo over CUDA tensors staged through the host, the ranks "
+              f"sharing one card; host seconds, waits included): {c}")
+    print(f"  21b loss without grad, fused MLP: launches {launches} a rank, "
+          f"fp32 kernel {k['kernel_loss']} vs plain {k['plain_loss']} (gap "
+          f"{rf['fp32_kernel_loss_gap']:.3g}); {rf['seconds']:.1f} s")
+    # 21c
+    rs = [r["reshard"] for r in world]
+    if not all(r["equal"] and r["step"] == 1 for r in rs):
+        raise AssertionError("21c: the checkpoint restored onto (4, 1) "
+                             "differs from the (2, 2) parameters")
+    ckpt = store_root / "world" / "full"
+    nbytes = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+    report["reshard"] = {
+        "layers": SHARDED["reshard_layers"], "checkpoint_bytes": nbytes,
+        "save_s_by_rank": [r["save_s"] for r in rs],
+        "restore_s_by_rank": [r["restore_s"] for r in rs],
+        "bitwise_equal": True, "seconds": world[0]["reshard_s"]}
+    print(f"  21c {TRAIN['arch']} at {SHARDED['reshard_layers']} layers: "
+          f"saved on (2, 2), restored onto (4, 1), every leaf bitwise equal; "
+          f"{nbytes} bytes, save s by rank "
+          f"{report['reshard']['save_s_by_rank']}, restore s by rank "
+          f"{report['reshard']['restore_s_by_rank']}")
+    shutil.rmtree(store_root, ignore_errors=True)
+    report["seconds"] = time.perf_counter() - t0
+    return {"report": report, "launches": runs, "shapes": shapes}
+
+
 def profile_run(fn, smi: str, out: pathlib.Path | None, name: str, *,
                 host_ops: bool = True) -> dict:
     """One more run of fn (a generate, a scheduler replay) under
@@ -4696,6 +5314,13 @@ def main() -> None:
         # ... and at phase 18's local d_ff
         b2_rows += [check_b2(M, ff, 64, torch.float32, gen, timed=False)
                     for M, ff in TP_SMOKE_CHAINS]
+        # phase 21b's loss without grad: B1 and goma_combine at a (2, 2)
+        # rank's MLP, fp32, timed (cold weights)
+        M, ff, d = SHARDED_MLP
+        b1_rows += [check_b1((M, N, K), torch.float32, gen, timed=True)
+                    for N, K in ((ff, d), (d, ff))]
+        combine_rows.append(check_combine((M, ff), torch.float32, gen,
+                                          timed=True))
         # the composition's combine: an odd fp32 shape, and every served
         # MLP's strip at decode and in the prefill
         combine_rows.append(check_combine((129, 257), torch.float32, gen,
@@ -4876,13 +5501,13 @@ def main() -> None:
     with phase("18 tensor-parallel serving (B1 at the per-rank shapes): "
                "llama3-8b and deepseek-moe-16b smoke and llama3-8b at full "
                "width over 2 and 4 ranks (gloo on one card)"):
-        tp = tp_serve(checked, stores / "tp", full)
+        tp = tp_serve(checked, stores / "tp")
         runs.update(tp["launches"])
         shapes.update(tp["shapes"])
     free_device()
     with phase("19 the rest of tensor-parallel serving: the recurrent, "
                "hybrid, encdec and vlm smoke configs, the scheduler and the "
-               "router, phase 11's deployment at 8 layers at TP 2 (B1, "
+               "router, phase 11's deployment at 4 layers at TP 2 (B1, "
                "goma_combine) and "
                "rwkv6-7b and zamba2-2.7b at full width at TP 2 (B3, B4 at a "
                "rank's heads; B1)"):
@@ -4898,6 +5523,16 @@ def main() -> None:
         train = training_phase(checked, gen, smi, out, stores / "ckpt")
         runs.update(train["launches"])
         shapes.update(train["shapes"])
+    free_device()
+    with phase("21 sharded training: FSDP and TP on (data, model) meshes of "
+               "gloo ranks on the card, the smoke configs and stablelm-1.6b "
+               "at full width (B2, B3, B4; B1, goma_combine in the loss "
+               "without grad), reshard-on-load"):
+        sharded = sharded_training(
+            checked, smi, stores / "sharded",
+            train["report"]["data_parallel"]["one_rank_losses"])
+        runs.update(sharded["launches"])
+        shapes.update(sharded["shapes"])
     free_device()
 
     b1 = next(r for r in b1_rows if r["shape"] == [4, 14336, 4096])
@@ -4965,6 +5600,7 @@ def main() -> None:
              "tensor_parallel": tp["serve"],
              "tensor_parallel_rest": tp_more["serve"],
              "training": train["report"],
+             "sharded_training": sharded["report"],
              "launches": runs,
              "shapes": shapes,
              "kernels": kernels,

@@ -8,6 +8,11 @@ reference's ``checkpoint/ckpt.py``, in its on-disk format).
     background thread,
   * keep-k GC of old steps,
   * restore: rebuilds tensors on a given device (or each like-leaf's),
+    and reshards on load: under a ``layout`` each rank takes its slices,
+    whatever mesh saved the checkpoint,
+  * sharded trees (``layout``: ``dist.fsdp.ShardedLayout``): one
+    checkpoint of whole leaves for all ranks, written by rank 0 after the
+    ranks have put every leaf together; every rank restores its slices,
   * integrity: per-leaf crc32 verified on load.
 
 Leaf paths are the reference's ``_flat`` paths: dict keys in sorted
@@ -61,21 +66,35 @@ def _host(leaf) -> np.ndarray:
 
 
 class CheckpointManager:
+    """``layout``: the sharded tree's layout when the ranks of a mesh share
+    this directory (``dist.fsdp.ShardedLayout``: ``unshard``,
+    ``placement``, ``rank``, ``barrier``); None for a tree that one
+    process holds whole."""
+
     def __init__(self, directory: str | pathlib.Path, *, keep: int = 3,
-                 async_save: bool = True):
+                 async_save: bool = True, layout=None):
         self.dir = pathlib.Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self.async_save = async_save
+        self.layout = layout
         self._thread: threading.Thread | None = None
 
     # ------------------------------------------------------------ save
     def save(self, step: int, tree) -> None:
         """Copy every leaf to the host now (later in-place updates do not
-        reach the checkpoint), then write, on a thread if async."""
-        host = [(path, _host(leaf)) for path, leaf in _flat(tree)]
+        reach the checkpoint), then write, on a thread if async.  With a
+        ``layout`` every rank takes part in putting each leaf together
+        (collectives, in one order) and rank 0 alone writes."""
+        self.wait()
+        if self.layout is None:
+            host = [(path, _host(leaf)) for path, leaf in _flat(tree)]
+        else:
+            host = [(path, self.layout.unshard(path, leaf))
+                    for path, leaf in _flat(tree)]
+            if self.layout.rank != 0:
+                return
         if self.async_save:
-            self.wait()
             self._thread = threading.Thread(
                 target=self._write, args=(step, host), daemon=True)
             self._thread.start()
@@ -83,9 +102,13 @@ class CheckpointManager:
             self._write(step, host)
 
     def wait(self) -> None:
+        """Until the last save is written; with a ``layout``, on every
+        rank (a barrier after rank 0's write)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.layout is not None:
+            self.layout.barrier()
 
     def _write(self, step: int, host_leaves) -> None:
         tmp = self.dir / f".tmp_step_{step}_{time.time_ns()}"
@@ -124,27 +147,41 @@ class CheckpointManager:
                 verify: bool = True):
         """(tree, step): the checkpoint at ``step`` (default the newest)
         in ``tree_like``'s structure, each leaf a tensor of the saved
-        dtype and shape on ``device``, or, when None, on the like-leaf's
-        device (the CPU for a leaf that is not a tensor)."""
+        dtype on ``device``, or, when None, on the like-leaf's device (the
+        CPU for a leaf that is not a tensor).
+
+        Reshard-on-load: with a ``layout`` each leaf goes through its
+        placement (``ShardedLayout.placement``: whole tensor -> this
+        rank's slice, relaid where the execution relays it), whatever
+        mesh saved the checkpoint.  Leaves are read, and placed on the
+        host, one at a time."""
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
         d = self.dir / f"step_{step:010d}"
         manifest = json.loads((d / "manifest.json").read_text())
+        recs = {rec["path"]: rec for rec in manifest["leaves"]}
+        if self.layout is not None:
+            placements = {path: self.layout.placement(path)
+                          for path, _ in _flat(tree_like)}
+        else:
+            placements = {}
+
         with np.load(d / "leaves.npz", allow_pickle=False) as z:
-            by_path = {}
-            for rec in manifest["leaves"]:
+            def make(path, like):
+                rec = recs[path]
                 arr = z[rec["name"]]
                 if verify:
                     crc = zlib.crc32(np.ascontiguousarray(arr).tobytes())
                     if crc != rec["crc32"]:
-                        raise IOError(
-                            f"checksum mismatch for {rec['path']}")
-                by_path[rec["path"]] = arr
-
-        def make(path, like):
-            dev = device if device is not None else (
-                like.device if isinstance(like, torch.Tensor) else "cpu")
-            return torch.from_numpy(by_path[path]).to(dev)
-        return _rebuild(tree_like, make), manifest["step"]
+                        raise IOError(f"checksum mismatch for {path}")
+                t = torch.from_numpy(arr)
+                place = placements.get(path)
+                if place is not None:
+                    t = place(t)
+                dev = device if device is not None else (
+                    like.device if isinstance(like, torch.Tensor) else "cpu")
+                return t.to(dev)
+            tree = _rebuild(tree_like, make)
+        return tree, manifest["step"]

@@ -3,8 +3,10 @@ reference's ``launch/mesh.py``).
 
 A mesh here is a description, not a device array: its axis names and
 sizes, and, on a rank of an initialised process group, the rank's
-coordinates and the process group of its "model" axis (the ranks that
+coordinates and the process groups of its "model" axis (the ranks that
 differ only in their model coordinate), which tensor parallelism sums
+over, and of its "data" axis (the ranks that differ only in their data
+coordinate), which FSDP gathers over and data parallelism averages
 over.  Ranks lie on the mesh data-major, as ``jax.make_mesh``
 lays devices out: rank r of a (data, model) mesh sits at (r // model,
 r % model).
@@ -29,26 +31,57 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..models.parallel import all_reduce_timed
+
 BACKENDS = ("gloo", "nccl")
+
+
+class _DataMean(torch.autograd.Function):
+    """The mean over the data axis of a statistic of each rank's rows; the
+    identity backward: every data rank computes the same function of the
+    mean, so the mean's gradient is the same on every rank, each rank's
+    rows take 1 / ranks of it, and the train step's mean of the ranks'
+    parameter gradients restores the factor."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, comm):
+        y = x.clone(memory_format=torch.contiguous_format)
+        all_reduce_timed(y, mesh.data_group, comm, "data_stats")
+        return y / mesh.shape["data"]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
 
 
 @dataclasses.dataclass
 class HostMesh:
     """A mesh's axes and sizes (``shape``, in ``axis_names`` order, as a
     jax Mesh has them); on a rank, its coordinates (``coords``) and the
-    process group of its model axis (``model_group``)."""
+    process groups of its model axis (``model_group``) and of its data
+    axis (``data_group``)."""
 
     shape: dict[str, int]
     axis_names: tuple[str, ...]
     rank: int | None = None
     coords: dict[str, int] | None = None
     model_group: object = dataclasses.field(default=None, repr=False)
+    data_group: object = dataclasses.field(default=None, repr=False)
 
     @property
     def devices(self) -> np.ndarray:
         """The ranks laid out on the mesh (a jax Mesh's device array)."""
         return np.arange(math.prod(self.shape.values())).reshape(
             tuple(self.shape.values()))
+
+    def data_mean(self, x: torch.Tensor, comm=None) -> torch.Tensor:
+        """The mean of ``x`` over the data ranks (``x`` itself on a mesh
+        with one), differentiable (``_DataMean``; ``comm`` counts the
+        all_reduce): the MoE loss's token statistics over a sharded
+        loss's global batch."""
+        if self.shape.get("data", 1) == 1 or x.device.type == "meta":
+            return x
+        return _DataMean.apply(x, self, comm)
 
     def barrier(self) -> None:
         """Wait for every rank of the world."""
@@ -66,7 +99,8 @@ def make_production_mesh(*, multi_pod: bool = False) -> HostMesh:
 def make_host_mesh(*, data: int | None = None, model: int = 1,
                    backend: str | None = None) -> HostMesh:
     """The ("data", "model") mesh of the initialised process group's
-    ranks, with this rank's coordinates and its model axis's group.
+    ranks, with this rank's coordinates and its model and data axes'
+    groups.
 
     ``data`` defaults to whatever the ranks fill (world // model).
     ``backend`` is that of the model groups; None takes the default
@@ -105,16 +139,19 @@ def make_host_mesh(*, data: int | None = None, model: int = 1,
             f"{n} ranks of the world")
     rank = dist.get_rank()
     coords = {"data": rank // model, "model": rank % model}
-    # every rank creates every data group's model group, in one order
-    # (new_group is collective), and keeps its own
-    own = None
-    for line in np.arange(n).reshape(data, model):
-        group = dist.new_group([int(r) for r in line], backend=backend)
-        if rank in line:
-            own = group
+    # every rank creates every model group (a row of the mesh), then
+    # every data group (a column), in one order (new_group is
+    # collective), and keeps its own
+    grid = np.arange(n).reshape(data, model)
+    own = {}
+    for axis, lines in (("model", grid), ("data", grid.T)):
+        for line in lines:
+            group = dist.new_group([int(r) for r in line], backend=backend)
+            if rank in line:
+                own[axis] = group
     return HostMesh(shape={"data": data, "model": model},
                     axis_names=("data", "model"), rank=rank, coords=coords,
-                    model_group=own)
+                    model_group=own["model"], data_group=own["data"])
 
 
 def _rank_main(rank: int, fn, world: int, rendezvous: str, timeout_s: float,

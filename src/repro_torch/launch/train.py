@@ -5,18 +5,26 @@ counterpart of the reference's ``launch/train.py``).
         --smoke --steps 30 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
         --steps 20 --seq 512 --batch 8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
+        --smoke --steps 30 --data 2 --model 2 --device cpu
 
 fp32 master weights from a seeded generator (``init_params(masters=
 True)``), AdamW with a warmup of 10 steps and a cosine decay over
 ``--steps``, every layer rematerialized, the reference's synthetic token
-stream.  ``--data N`` trains on N data-parallel gloo ranks (the data axis
-of the reference's host mesh; on one card the ranks share it), each on
-its rows of the global batch, the gradients averaged exactly before
+stream.  ``--data D --model M`` trains on the (D, M) mesh of
+``make_host_mesh`` over D x M gloo ranks (on one card the ranks share
+it): each data coordinate takes its rows of the global batch, and the
+parameters and moments are sharded as ``--sharding`` says, after the
+modes of ``param_shardings``: "fsdp" (the default, as the reference's
+launcher shards) splits the large leaves over the data axis too, "tp"
+keeps each TP-local leaf whole on every data rank.  ``--sharding tp
+--model 1`` is plain data parallelism: replicas averaged exactly before
 every update.  With ``--ckpt-dir`` the run restores from the newest
-checkpoint there and saves every 50 steps and at the end (each rank in
-its own ``rank<r>`` directory when N > 1).  Runs on the CUDA card unless
-``--device cpu`` is given; without a card and without that flag it exits
-with an error instead of falling back.
+checkpoint there and saves every 50 steps and at the end: a sharded run
+keeps one checkpoint of whole leaves for all its ranks, replicas one each
+in ``rank<r>``.  Runs on the CUDA card unless ``--device cpu`` is given;
+without a card and without that flag it exits with an error instead of
+falling back.
 """
 from __future__ import annotations
 
@@ -31,9 +39,11 @@ import torch
 from ..checkpoint import CheckpointManager
 from ..configs import ARCHS, get_config
 from ..data import DataConfig, RankRows
+from ..dist.serve import shard_model
 from ..models import build_model
 from ..training import LoopConfig, optimizer as opt, run_training
 from ..training.train_step import jit_train_step
+from .mesh import make_host_mesh, run_ranks
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -54,8 +64,19 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda)")
     ap.add_argument("--data", type=int, default=1,
-                    help="data-parallel gloo ranks (default 1)")
+                    help="the mesh's data axis: gloo ranks (default 1)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="the mesh's model (tensor-parallel) axis "
+                         "(default 1)")
+    ap.add_argument("--sharding", choices=("fsdp", "tp"), default="fsdp",
+                    help="param_shardings' mode: fsdp (default) or tp")
     return ap
+
+
+def _replicas(args) -> bool:
+    """Whether the ranks are plain data-parallel replicas
+    (``jit_train_step(group=)``) rather than a sharded mesh."""
+    return args.sharding == "tp" and args.model == 1
 
 
 def train(args: argparse.Namespace, rank: int = 0, world: int = 1,
@@ -71,23 +92,33 @@ def train(args: argparse.Namespace, rank: int = 0, world: int = 1,
         say(f"note: {cfg.family} frontend is stubbed; training uses zero "
             f"prefix embeddings")
     model = build_model(cfg)
-    say(f"data ranks: {world}  arch: {cfg.name}  device: {device}")
+    rows, layout = RankRows(device=device, rank=rank, world=world), None
+    if world > 1 and not _replicas(args):
+        mesh = make_host_mesh(data=args.data, model=args.model)
+        model = shard_model(model, mesh, mode=args.sharding)
+        rows = RankRows(device=device, rank=mesh.coords["data"],
+                        world=args.data)
+        say(f"mesh: {mesh.shape}  sharding: {args.sharding}")
+    say(f"data ranks: {rows.world}  arch: {cfg.name}  device: {device}")
     params = model.init_params(
         torch.Generator(device=device).manual_seed(0), device, masters=True)
     n = sum(p.numel() for p in opt.tree_leaves(params))
-    say(f"params: {n / 1e6:.2f}M")
+    say(f"params: {n / 1e6:.2f}M"
+        + (" on this rank" if model.tp is not None else ""))
     opt_state = opt.init_state(params)
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                           global_batch=args.batch, seed=0)
     ocfg = opt.AdamWConfig(lr=args.lr, warmup_steps=10,
                            total_steps=args.steps)
     step = jit_train_step(model, ocfg, microbatches=args.microbatches)
+    if model.tp is not None:
+        layout = step.layout
 
     run_step = step
     if cfg.family in ("encdec", "vlm"):
         # the stub frontend's embeddings, zeros, added to every batch
         key_name = "frames" if cfg.family == "encdec" else "patches"
-        stub = torch.zeros((args.batch // world, cfg.frontend_len,
+        stub = torch.zeros((args.batch // rows.world, cfg.frontend_len,
                             cfg.d_model), device=device)
 
         def run_step(p, s, batch):
@@ -96,10 +127,11 @@ def train(args: argparse.Namespace, rank: int = 0, world: int = 1,
     ckpt = None
     if args.ckpt_dir:
         d = pathlib.Path(args.ckpt_dir)
-        ckpt = CheckpointManager(d / f"rank{rank}" if world > 1 else d)
+        replica = world > 1 and layout is None
+        ckpt = CheckpointManager(d / f"rank{rank}" if replica else d,
+                                 layout=layout)
     params, opt_state, state = run_training(
-        run_step, params, opt_state, data_cfg,
-        RankRows(device=device, rank=rank, world=world),
+        run_step, params, opt_state, data_cfg, rows,
         LoopConfig(total_steps=args.steps, ckpt_every=50, log_every=10),
         ckpt, log=say)
     if state.losses:
@@ -127,18 +159,18 @@ def main(argv: list[str] | None = None) -> None:
             not torch.cuda.is_available():
         ap.error("no CUDA device is available; pass --device cpu to train "
                  "on the CPU")
-    if args.data < 1 or args.batch % args.data:
+    if args.data < 1 or args.model < 1 or args.batch % args.data:
         ap.error(f"--batch {args.batch} must split over --data "
                  f"{args.data} ranks")
-    if args.data == 1:
+    world = args.data * args.model
+    if world == 1:
         train(args)
         return
-    from .mesh import run_ranks
     argv = list(argv) if argv is not None else __import__("sys").argv[1:]
-    out = run_ranks(_rank, args.data, argv, args.data)
+    out = run_ranks(_rank, world, argv, world)
     if any(o["losses"] != out[0]["losses"] for o in out):
-        raise SystemExit("the data ranks report different losses")
-    print(f"{args.data} ranks: losses equal on every rank "
+        raise SystemExit("the ranks report different losses")
+    print(f"{world} ranks: losses equal on every rank "
           f"({np.round(out[0]['losses'], 4).tolist()})")
 
 

@@ -190,7 +190,7 @@ def attention_apply(p: Params, x: torch.Tensor, *, n_heads: int,
                     cache_index: int | torch.Tensor | None = None,
                     static_cache: bool = False,
                     kv_range: tuple[int, int] | None = None,
-                    block: int = 512):
+                    block: int = 512, enter=None):
     """Returns (out, cache).  ``xkv`` (B, T_src, d) switches to
     cross-attention: keys and values come from it, without rope, at
     positions arange(T_src).  Cache layout: {"k": (B, T_max, KV, hd),
@@ -206,8 +206,13 @@ def attention_apply(p: Params, x: torch.Tensor, *, n_heads: int,
     returned cache is the same dict.  ``kv_range`` (lo, hi): the queries
     read only KV heads lo..hi-1 of those projected and cached (a
     tensor-parallel rank's query heads, with the KV heads replicated).
+    ``enter`` maps ``x`` and ``xkv`` as they enter the projections (a
+    tensor-parallel rank's split region: ``TensorParallel.enter``).
     """
     B, S, _ = x.shape
+    if enter is not None:
+        x = enter(x)
+        xkv = None if xkv is None else enter(xkv)
     src = x if xkv is None else xkv
     q = dense(p["wq"], x).reshape(B, S, n_heads, head_dim)
     static = cache is not None and static_cache

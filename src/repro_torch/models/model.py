@@ -25,6 +25,14 @@ makes every leaf in the parameter dtype, as the reference's optimizer
 keeps them.  The kernels have no backward: a loss through the fused MLP
 or the scan kernels raises under grad, as ``jax.grad`` fails through the
 reference's Pallas kernels, and runs under ``torch.no_grad()``.
+
+Sharded (``dist.serve.shard_model``): ``tp`` runs a rank's share of the
+Megatron layout over the mesh's model axis (``parallel.py``), and
+``fsdp``, where installed, holds each leaf split over its data axis too
+(``dist.fsdp``): each layer body gathers its own leaves inside the
+rematerialized body, so the backward's recompute gathers them again; the
+embedding, the final norm and the LM head are gathered where a pass uses
+them.
 """
 from __future__ import annotations
 
@@ -111,6 +119,10 @@ class Model:
     # shard_model installs it); None on one device
     tp: TensorParallel | None = dataclasses.field(default=None, repr=False,
                                                   compare=False)
+    # the FSDP layout over the mesh's data axis (dist.fsdp's
+    # FullyShardedData, which shard_model installs with mode="fsdp"); None
+    # where every data rank holds its TP-local leaves whole
+    fsdp: object = dataclasses.field(default=None, repr=False, compare=False)
 
     def __post_init__(self):
         if self.cfg.family not in PROJECTIONS:
@@ -135,11 +147,11 @@ class Model:
         the experts' upcast).
 
         On a tensor-parallel model each leaf is drawn whole and at once
-        cut to this rank's slice (``tp.place``), so the whole tensor is
-        freed before the next one is drawn: a rank's peak stays near its
-        shard plus the largest tensor.  The draws come in the same order
-        either way, so every rank's slices come from one device's
-        weights."""
+        cut to this rank's slice (``tp.place``, then ``fsdp.place``), so
+        the whole tensor is freed before the next one is drawn: a rank's
+        peak stays near its shard plus the largest tensor.  The draws
+        come in the same order either way, so every rank's slices come
+        from one device's weights."""
         cfg = self.cfg
         pdt, cdt = L.dtype_of(cfg.param_dtype), L.dtype_of(cfg.compute_dtype)
         if masters:
@@ -147,6 +159,9 @@ class Model:
         f32 = torch.float32
         n, d = cfg.layers, cfg.d_model
         place = self.tp.place if self.tp is not None else None
+        if self.fsdp is not None:
+            place = lambda path, t: self.fsdp.place(path,
+                                                    self.tp.place(path, t))
 
         # each leaf is a thunk until the tree is complete; the tree is
         # then made leaf by leaf in its insertion order, which is the
@@ -243,14 +258,15 @@ class Model:
         exactly."""
         cfg = self.cfg
         tp = self.tp
+        embed = self._whole(params["embed"], "embed")
         if tp is not None and tp.embed_split:
-            e = params["embed"]["e"]
+            e = embed["e"]
             rows = tokens - tp.index * e.shape[0]
             mine = (rows >= 0) & (rows < e.shape[0])
             x = tp.all_reduce(torch.where(
                 mine[..., None], e[rows.clamp(0, e.shape[0] - 1)], 0))
         else:
-            x = L.embed(params["embed"], tokens)
+            x = L.embed(embed, tokens)
         if cfg.name.startswith("gemma2"):
             # the scale rounded to the embedding's dtype, as the reference
             # takes it
@@ -261,9 +277,14 @@ class Model:
 
     def _lm_logits(self, params, x):
         cfg = self.cfg
-        x = L.apply_norm(params["final_norm"], x, cfg.norm)
-        w = (params["embed"]["e"].T if cfg.tie_embeddings
-             else params["lm_head"]["w"])
+        x = L.apply_norm(self._whole(params["final_norm"], "final_norm"), x,
+                         cfg.norm)
+        head = "embed" if cfg.tie_embeddings else "lm_head"
+        w = self._whole(params[head], head)
+        w = w["e"].T if cfg.tie_embeddings else w["w"]
+        # the vocab-split head is a split region: its input's gradient is
+        # summed over the ranks
+        x = self._enter(x, "embed/e" if cfg.tie_embeddings else "lm_head/w")
         ldt = L.dtype_of(cfg.logits_dtype)
         if ldt != torch.float32:
             logits = x.to(ldt) @ w.to(ldt)
@@ -273,10 +294,7 @@ class Model:
         if tp is not None and tp.head_split:
             # the ranks' vocab columns gathered exactly: each writes its
             # own into zeros, and the all_reduce sums them
-            full = logits.new_zeros(logits.shape[:-1] + (cfg.padded_vocab,))
-            lo = tp.index * logits.shape[-1]
-            full[..., lo:lo + logits.shape[-1]] = logits
-            logits = tp.all_reduce(full)
+            logits = tp.gather_columns(logits, cfg.padded_vocab)
         if cfg.logit_softcap:
             logits = cfg.logit_softcap * torch.tanh(
                 logits / cfg.logit_softcap)
@@ -300,6 +318,35 @@ class Model:
         tensor-parallel ranks where that projection is split by rows."""
         return x if self.tp is None else self.tp.reduce(x, path)
 
+    def _enter(self, x: torch.Tensor, path: str) -> torch.Tensor:
+        """``x`` entering the split region that the projection at
+        ``path`` closes (``TensorParallel.enter``: its gradient summed
+        over the ranks in the backward)."""
+        return x if self.tp is None else self.tp.enter(x, path)
+
+    def _enterer(self, path: str):
+        """``_enter`` at ``path`` as a function, or None without TP."""
+        return None if self.tp is None else (
+            lambda x: self.tp.enter(x, path))
+
+    def _layers(self, params, key: str) -> list[dict]:
+        """Every layer's parameters of the stack at ``key`` (views): under
+        FSDP each layer's local parts, which the body gathers
+        (``_whole``)."""
+        if self.fsdp is None:
+            return unbind_tree(params[key])
+        return self.fsdp.layer_parts(key, params[key])
+
+    def _whole(self, tree: dict, prefix: str, layer: int | None = None):
+        """The whole (TP-local) parameters of the subtree at ``prefix``:
+        under FSDP gathered over the data axis (layer ``layer`` of a
+        stack from its parts), else ``tree`` itself."""
+        if self.fsdp is None:
+            return tree
+        if layer is None:
+            return self.fsdp.gather_tree(prefix, tree)
+        return self.fsdp.gather_layer(prefix, tree, layer)
+
     def _ckpt(self, fn):
         """``fn`` rematerialized in training: under grad its activations
         are recomputed in the backward instead of kept (the reference's
@@ -317,9 +364,9 @@ class Model:
             return checkpoint(fn, *args, use_reentrant=False, **kw)
         return run
 
-    def _attn_block(self, lp, x, positions, *, block="layers",
+    def _attn_block(self, lp, x, positions, *, block="layers", layer=None,
                     window_flag=None, cache=None, cache_index=None,
-                    remat=False):
+                    remat=False, aux_over_data=False):
         """Pre-norm attention and gated MLP (or mixture of experts) with
         residuals: a dense, VLM or MoE layer, or the hybrid's shared
         block (``block`` is the path of its parameters).  The config's
@@ -331,30 +378,34 @@ class Model:
         the MLP its share of d_ff (the MoE its experts), and one
         all_reduce after each sums the partial outputs.  With ``remat``
         the block is rematerialized (``_ckpt``; training passes no
-        cache)."""
+        cache).  ``layer``: the index of a stacked layer (its parameters
+        are gathered inside the body under FSDP)."""
         cfg = self.cfg
 
         def body(lp, x):
+            lp = self._whole(lp, block, layer)
             h, _ = L.attention_apply(
                 lp["attn"], L.apply_norm(lp["ln1"], x, cfg.norm),
                 **self._heads(f"{block}/attn"),
                 head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
                 q_positions=positions, causal=True, window=cfg.window,
                 window_active=window_flag, softcap=cfg.attn_softcap,
-                cache=cache, cache_index=cache_index)
+                cache=cache, cache_index=cache_index,
+                enter=self._enterer(f"{block}/attn/wo/w"))
             x = x + self._reduce(h, f"{block}/attn/wo/w")
             y = L.apply_norm(lp["ln2"], x, cfg.norm)
             if "moe" in lp:
-                h, aux = MOE.moe_apply(lp["moe"], cfg, y, tp=self.tp)
+                h, aux = MOE.moe_apply(lp["moe"], cfg, y, tp=self.tp,
+                                       aux_over_data=aux_over_data)
             else:
-                h, aux = self._reduce(L.mlp_apply(lp["mlp"], y,
-                                                  use_fused=cfg.fused_mlp),
-                                      f"{block}/mlp/wd/w"), None
+                h, aux = self._reduce(L.mlp_apply(
+                    lp["mlp"], self._enter(y, f"{block}/mlp/wd/w"),
+                    use_fused=cfg.fused_mlp), f"{block}/mlp/wd/w"), None
             return x + h, aux
         return (self._ckpt(body) if remat else body)(lp, x)
 
     def _forward_stack(self, params, x, positions, *, caches=None,
-                       cache_index=None, remat=False):
+                       cache_index=None, remat=False, aux_over_data=False):
         """Run the layers in order.  caches: the model's layer caches
         (``init_cache(...)["layers"]``), updated in place, or None.  With
         ``cache_index`` None (a prefill) the recurrent layers start from
@@ -363,20 +414,22 @@ class Model:
         take their kernels (B3, B4), as ``use_pallas_scan`` means.
         Returns (x, aux): the sum of the MoE layers' load-balancing
         losses (0 for the other families), as the reference's scan sums
-        them.  ``remat`` rematerializes each layer body."""
+        them.  ``remat`` rematerializes each layer body;
+        ``aux_over_data`` takes the MoE loss over the mesh's global
+        batch (a training loss)."""
         cfg = self.cfg
         fam = cfg.family
         aux = x.new_zeros((), dtype=torch.float32)
         if fam in ("dense", "moe", "vlm"):
-            for i, lp in enumerate(unbind_tree(params["layers"])):
+            for i, lp in enumerate(self._layers(params, "layers")):
                 cache = (None if caches is None
                          else {"k": caches["k"][i], "v": caches["v"][i]})
                 # gemma2's alternation: even layers local, odd global
                 wf = (i % 2 == 0) if cfg.alt_local_global else None
                 x, a = self._attn_block(
-                    lp, x, positions,
+                    lp, x, positions, layer=i,
                     window_flag=wf, cache=cache, cache_index=cache_index,
-                    remat=remat)
+                    remat=remat, aux_over_data=aux_over_data)
                 if a is not None:
                     aux = aux + a
             return x, aux
@@ -394,23 +447,26 @@ class Model:
         decode = cache_index is not None
         heads = None if self.tp is None else self.tp.rwkv_heads
 
-        def body(lp, x, carry):
+        def body(lp, x, carry, i):
+            lp = self._whole(lp, "layers", i)
             h, (state, tshift) = RW.rwkv_time_apply(
                 lp["time"], cfg, L.apply_norm(lp["ln1"], x, cfg.norm),
                 state=carry.get("state"), shift=carry.get("tshift"),
-                decode=decode, heads=heads)
+                decode=decode, heads=heads,
+                enter=self._enterer("layers/time/wo/w"))
             x = x + self._reduce(h, "layers/time/wo/w")
             h, cshift = RW.rwkv_channel_apply(
                 lp["chan"], cfg, L.apply_norm(lp["ln2"], x, cfg.norm),
                 shift=carry.get("cshift"),
-                reduce=lambda v: self._reduce(v, "layers/chan/wv/w"))
+                reduce=lambda v: self._reduce(v, "layers/chan/wv/w"),
+                enter=self._enterer("layers/chan/wv/w"))
             return x + h, state, tshift, cshift
         if remat:
             body = self._ckpt(body)
-        for i, lp in enumerate(unbind_tree(params["layers"])):
+        for i, lp in enumerate(self._layers(params, "layers")):
             carry = (index_tree(caches, i) if caches is not None and decode
                      else {})
-            x, state, tshift, cshift = body(lp, x, carry)
+            x, state, tshift, cshift = body(lp, x, carry, i)
             if caches is not None:
                 caches["state"][i].copy_(state)
                 caches["tshift"][i].copy_(tshift)
@@ -427,22 +483,25 @@ class Model:
         decode = cache_index is not None
         heads = None if self.tp is None else self.tp.ssm_heads
 
-        def body(lp, x, state, conv):
+        def body(lp, x, state, conv, i):
+            lp = self._whole(lp, "layers", i)
+            y = self._enter(L.apply_norm(lp["ln"], x, cfg.norm),
+                            "layers/ssm/out_proj/w")
             h, (state, conv) = SSM.ssm_apply(
-                lp["ssm"], cfg, L.apply_norm(lp["ln"], x, cfg.norm),
-                state=state, conv_state=conv, decode=decode, heads=heads)
+                lp["ssm"], cfg, y, state=state, conv_state=conv,
+                decode=decode, heads=heads)
             return x + self._reduce(h, "layers/ssm/out_proj/w"), state, conv
         if remat:
             body = self._ckpt(body)
-        layers = unbind_tree(params["layers"])
+        layers = self._layers(params, "layers")
         for g in range(cfg.layers // period):
             for j in range(period):
                 state = conv = None
                 if caches is not None and decode:
                     state = caches["ssm"]["state"][g, j]
                     conv = caches["ssm"]["conv"][g, j]
-                x, state, conv = body(layers[g * period + j], x, state,
-                                      conv)
+                i = g * period + j
+                x, state, conv = body(layers[i], x, state, conv, i)
                 if caches is not None:
                     caches["ssm"]["state"][g, j].copy_(state)
                     caches["ssm"]["conv"][g, j].copy_(conv)
@@ -465,22 +524,26 @@ class Model:
         cfg = self.cfg
         pos = torch.arange(enc_embeds.shape[1], device=enc_embeds.device)
 
-        def body(lp, x):
+        def body(lp, x, i):
+            lp = self._whole(lp, "encoder", i)
             h, _ = L.attention_apply(
                 lp["attn"], L.apply_norm(lp["ln1"], x, cfg.norm),
                 **self._heads("encoder/attn"),
                 head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-                q_positions=pos, causal=False)
+                q_positions=pos, causal=False,
+                enter=self._enterer("encoder/attn/wo/w"))
             x = x + self._reduce(h, "encoder/attn/wo/w")
             return x + self._reduce(L.mlp_apply(
-                lp["mlp"], L.apply_norm(lp["ln2"], x, cfg.norm)),
+                lp["mlp"], self._enter(L.apply_norm(lp["ln2"], x, cfg.norm),
+                                       "encoder/mlp/wd/w")),
                 "encoder/mlp/wd/w")
         if remat:
             body = self._ckpt(body)
         x = enc_embeds
-        for lp in unbind_tree(params["encoder"]):
-            x = body(lp, x)
-        return L.apply_norm(params["enc_norm"], x, cfg.norm)
+        for i, lp in enumerate(self._layers(params, "encoder")):
+            x = body(lp, x, i)
+        return L.apply_norm(self._whole(params["enc_norm"], "enc_norm"), x,
+                            cfg.norm)
 
     def _decode_stack_encdec(self, params, x, enc_out, positions, *,
                              caches=None, cache_index=None, remat=False):
@@ -490,29 +553,32 @@ class Model:
         as the reference does), then the MLP (unfused)."""
         cfg = self.cfg
 
-        def body(lp, x, enc_out, cache):
+        def body(lp, x, enc_out, cache, i):
+            lp = self._whole(lp, "layers", i)
             h, _ = L.attention_apply(
                 lp["attn"], L.apply_norm(lp["ln1"], x, cfg.norm),
                 **self._heads("layers/attn"), head_dim=cfg.head_dim,
                 rope_theta=cfg.rope_theta, q_positions=positions,
-                causal=True, cache=cache, cache_index=cache_index)
+                causal=True, cache=cache, cache_index=cache_index,
+                enter=self._enterer("layers/attn/wo/w"))
             x = x + self._reduce(h, "layers/attn/wo/w")
             h, _ = L.attention_apply(
                 lp["xattn"], L.apply_norm(lp["lnx"], x, cfg.norm),
                 **self._heads("layers/xattn"), head_dim=cfg.head_dim,
                 rope_theta=None, q_positions=positions, causal=False,
-                xkv=enc_out)
+                xkv=enc_out, enter=self._enterer("layers/xattn/wo/w"))
             x = x + self._reduce(h, "layers/xattn/wo/w")
             return x + self._reduce(L.mlp_apply(
-                lp["mlp"], L.apply_norm(lp["ln2"], x, cfg.norm)),
+                lp["mlp"], self._enter(L.apply_norm(lp["ln2"], x, cfg.norm),
+                                       "layers/mlp/wd/w")),
                 "layers/mlp/wd/w")
         if remat:
             body = self._ckpt(body)
-        for i, lp in enumerate(unbind_tree(params["layers"])):
+        for i, lp in enumerate(self._layers(params, "layers")):
             cache = (None if caches is None
                      else {"k": caches["self"]["k"][i],
                            "v": caches["self"]["v"][i]})
-            x = body(lp, x, enc_out, cache)
+            x = body(lp, x, enc_out, cache, i)
         return x
 
     # -------------------------------------------------------- training
@@ -524,7 +590,9 @@ class Model:
         ``tokens`` and ``labels`` (B, S) integer tensors, and ``frames``
         (the encoder's input) or ``patches`` (a prefix) (B, F, d) for the
         frontends' families.  ``remat`` rematerializes every layer body
-        (``_ckpt``).  Returns a 0-d fp32 tensor."""
+        (``_ckpt``).  Returns a 0-d fp32 tensor.  On a mesh each data
+        rank's loss is over its rows (the train step averages them), the
+        MoE load-balancing loss over the global batch."""
         cfg = self.cfg
         tokens, labels = batch["tokens"], batch["labels"]
         cdt = L.dtype_of(cfg.compute_dtype)
@@ -539,7 +607,8 @@ class Model:
             prefix = batch.get("patches") if cfg.family == "vlm" else None
             x = self._embed_in(params, tokens, prefix)
             pos = torch.arange(x.shape[1], device=tokens.device)
-            x, aux = self._forward_stack(params, x, pos, remat=remat)
+            x, aux = self._forward_stack(params, x, pos, remat=remat,
+                                         aux_over_data=self.tp is not None)
             if prefix is not None:
                 x = x[:, prefix.shape[1]:]
         logits = self._lm_logits(params, x)

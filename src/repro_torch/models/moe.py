@@ -36,7 +36,10 @@ the banks hold the rank's E/TP experts and the shared experts its share
 of their d_ff; the router is whole, so every rank routes every token
 alike, runs its own experts on the tokens routed to them and sums its
 partial output in the fixed order above; one all_reduce then adds the
-ranks' partial sums (``parallel.tp_sum``).
+ranks' partial sums (``parallel.tp_sum``).  The tokens and the combine
+weights enter the experts' split region (``TensorParallel.enter``), so
+in training the router gets every rank's share of the gradient through
+the weights, and its load-balancing loss, the same on every rank, once.
 """
 from __future__ import annotations
 
@@ -83,13 +86,19 @@ def _route(p: Params, cfg, xf: torch.Tensor):
 
 
 def _aux_loss(probs: torch.Tensor, top_i: torch.Tensor, E: int,
-              k: int) -> torch.Tensor:
+              k: int, tp=None) -> torch.Tensor:
     """Switch load balancing: E * sum_e f_e * P_e / k, with f_e the share
-    of tokens routing to expert e and P_e its mean probability."""
+    of tokens routing to expert e and P_e its mean probability; with
+    ``tp`` (a loss on a mesh with data ranks) both means are over the
+    global batch, the data ranks' means averaged
+    (``launch.mesh.HostMesh.data_mean``), as the reference's loss takes
+    them over its sharded batch."""
     tokens = probs.reshape(-1, E)
     picked = F.one_hot(top_i.reshape(-1, k), E).sum(1).to(_F32)
-    f = picked.mean(0)
-    return E * torch.sum(f * tokens.mean(0)) / k
+    f, P = picked.mean(0), tokens.mean(0)
+    if tp is not None:
+        f, P = tp.mesh.data_mean(torch.cat([f, P]), tp.comm).split(E)
+    return E * torch.sum(f * P) / k
 
 
 def _shared(p: Params, xf: torch.Tensor) -> torch.Tensor:
@@ -105,40 +114,51 @@ def _local_experts(p: Params, tp) -> tuple[int, int]:
     return lo, lo + n
 
 
+def _enter(tp, x: torch.Tensor, path: str) -> torch.Tensor:
+    return x if tp is None else tp.enter(x, path)
+
+
 def _combine_shared(p: Params, cfg, xf, y, tp):
     parts = [(y, tp is not None and tp.experts_split)]
     if cfg.shared_experts:
-        parts.append((_shared(p, xf), tp is not None and tp.shared_split))
+        parts.append((_shared(p, _enter(tp, xf, "layers/moe/shared/wd/w")),
+                      tp is not None and tp.shared_split))
     return tp_sum(tp, parts)
 
 
-def moe_apply(p: Params, cfg, x: torch.Tensor, *, tp=None):
+def moe_apply(p: Params, cfg, x: torch.Tensor, *, tp=None,
+              aux_over_data: bool = False):
     """x: (B, S, d).  Returns (y in x's dtype, aux loss); the dispatch per
-    ``cfg.moe_dispatch``."""
+    ``cfg.moe_dispatch``.  ``aux_over_data``: the aux loss over the
+    global batch of ``tp``'s mesh (a training loss)."""
     if getattr(cfg, "moe_dispatch", "dense") == "gathered":
-        return moe_apply_gathered(p, cfg, x, tp=tp)
+        return moe_apply_gathered(p, cfg, x, tp=tp,
+                                  aux_over_data=aux_over_data)
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     xf = x.reshape(B * S, d).to(_F32)
     probs, top_w, top_i = _route(p, cfg, xf)
     # the combine weights as a dense (T, E) matrix: zero off the top-k
-    combine = torch.zeros_like(probs).scatter_add_(-1, top_i, top_w)
+    combine = _enter(tp, torch.zeros_like(probs).scatter_add_(
+        -1, top_i, top_w), "layers/moe/wd")
     lo, hi = _local_experts(p, tp)
     # every (local) expert over every token: (E, T, F), one batched
     # product each
-    g = torch.matmul(xf, p["wg"].to(_F32))
-    u = torch.matmul(xf, p["wu"].to(_F32))
+    xe = _enter(tp, xf, "layers/moe/wd")
+    g = torch.matmul(xe, p["wg"].to(_F32))
+    u = torch.matmul(xe, p["wu"].to(_F32))
     h = F.silu(g) * u * combine.T[lo:hi, :, None]
     # sum over (expert, f) in one product: (T, E * F) @ (E * F, d)
     wd = p["wd"].to(_F32)
     y = h.permute(1, 0, 2).reshape(B * S, -1) @ wd.reshape(-1, d)
     y = _combine_shared(p, cfg, xf, y, tp)
-    aux = _aux_loss(probs, top_i, E, k)
+    aux = _aux_loss(probs, top_i, E, k, tp if aux_over_data else None)
     return y.reshape(B, S, d).to(x.dtype), aux
 
 
 def moe_apply_gathered(p: Params, cfg, x: torch.Tensor, *,
-                       capacity_factor: float = 1.25, tp=None):
+                       capacity_factor: float = 1.25, tp=None,
+                       aux_over_data: bool = False):
     """Sort-based capacity-bucketed dispatch: each expert processes at most
     C = capacity_factor * T * k / E of its routed tokens, in the order of
     a stable sort on expert ids; the rest drop.  A trash row absorbs the
@@ -162,7 +182,7 @@ def moe_apply_gathered(p: Params, cfg, x: torch.Tensor, *,
 
     # scatter the tokens into (E*C [+1 trash], d) expert buffers
     xbuf = torch.zeros((E * C + 1, d), dtype=_F32, device=dev)
-    xbuf[buf_idx] = xf[order // k]
+    xbuf[buf_idx] = _enter(tp, xf, "layers/moe/wd")[order // k]
     lo, hi = _local_experts(p, tp)
     xe = xbuf[:E * C].reshape(E, C, d)[lo:hi]
     g = torch.bmm(xe, p["wg"].to(_F32))
@@ -175,8 +195,9 @@ def moe_apply_gathered(p: Params, cfg, x: torch.Tensor, *,
     # in a fixed order; dropped ones weigh zero
     slot = torch.empty_like(buf_idx)
     slot[order] = buf_idx
-    weight = top_w.reshape(-1) * (slot < E * C)
+    weight = _enter(tp, top_w.reshape(-1) * (slot < E * C),
+                    "layers/moe/wd")
     contrib = ye[torch.clamp(slot, max=E * C - 1)] * weight[:, None]
     y = _combine_shared(p, cfg, xf, contrib.reshape(T, k, d).sum(1), tp)
-    aux = _aux_loss(probs, top_i, E, k)
+    aux = _aux_loss(probs, top_i, E, k, tp if aux_over_data else None)
     return y.reshape(B, S, d).to(x.dtype), aux

@@ -39,10 +39,23 @@ The caches follow the execution layout: KV caches and recurrent states
 hold the rank's heads, the Mamba2 conv carry its [x_r, B, C] channels,
 and the RWKV token-shift carries and the encoder's output stay at the
 full d_model (they feed replicated inputs).
+
+Training differentiates through the collectives (Megatron's f and g):
+each sum over the model axis (``all_reduce``: the row-split outputs,
+the vocab-parallel embedding) passes its gradient through unchanged, and
+every input that enters a split region (``enter``) is the identity
+forward with an ``all_reduce`` of its gradient backward, so a
+replicated activation gets the gradient of every rank's share; the
+logits gather hands each rank back its own columns.  A leaf each rank
+holds whole but uses only in part gets its gradient summed over the
+model axis after the backward (``sum_grad``).  Under ``no_grad`` and
+``inference_mode`` the forward runs the same collectives, in place, as
+serving always has.
 """
 from __future__ import annotations
 
 import re
+import time
 
 import torch
 import torch.distributed as dist
@@ -77,6 +90,69 @@ def ssm_columns(cfg, index: int, size: int) -> dict[str, torch.Tensor]:
             "conv_w": torch.cat([x - d_inner, bc - d_inner])}
 
 
+def all_reduce_timed(t: torch.Tensor, group, comm: dict | None,
+                     kind: str) -> None:
+    """``dist.all_reduce(t)`` over ``group``, in place, counted in
+    ``comm[kind]``: calls, bytes and the host seconds inside the call
+    (waits for queued device work and for the other ranks included)."""
+    t0 = time.perf_counter()
+    dist.all_reduce(t, group=group)
+    if comm is not None:
+        row = comm.setdefault(kind, {"calls": 0, "bytes": 0, "seconds": 0.0})
+        row["calls"] += 1
+        row["bytes"] += t.numel() * t.element_size()
+        row["seconds"] += time.perf_counter() - t0
+
+
+class _SumOverModel(torch.autograd.Function):
+    """Sum over the model axis: an all_reduce forward; the identity
+    backward, since every rank holds the same gradient of the sum."""
+
+    @staticmethod
+    def forward(ctx, x, tp, kind):
+        y = x.clone(memory_format=torch.contiguous_format)
+        tp.reduce_in_place(y, kind)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _EnterSplit(torch.autograd.Function):
+    """Enter a split region: the identity forward; the backward sums the
+    gradient over the model axis, since each rank's share of the region
+    gives only its part of it."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        ctx.tp.reduce_in_place(g, "tp_enter")
+        return g, None
+
+
+class _GatherColumns(torch.autograd.Function):
+    """The ranks' column blocks gathered exactly (each writes its own
+    into zeros; one all_reduce sums them); the backward hands each rank
+    back its own columns."""
+
+    @staticmethod
+    def forward(ctx, local, tp, width):
+        full, ctx.lo = tp.columns_in_zeros(local, width)
+        ctx.n = local.shape[-1]
+        tp.reduce_in_place(full, "logits_gather")
+        return full
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[..., ctx.lo:ctx.lo + ctx.n], None, None
+
+
 class TensorParallel:
     """A model's tensor-parallel layout on ``mesh`` (``launch.mesh``),
     for this rank: the execution spec of every parameter (``specs``),
@@ -85,7 +161,8 @@ class TensorParallel:
     (``split``), the local head counts of each attention block
     (``heads``), of the RWKV time mix (``rwkv_heads``) and of the Mamba2
     mixer (``ssm_heads``), and the collectives, each counted
-    (``all_reduces``, ``broadcasts``, ``token_checks``)."""
+    (``all_reduces``, ``broadcasts``, ``token_checks``; in training also
+    by kind in ``comm``: calls, bytes, host seconds)."""
 
     def __init__(self, model, mesh, *, strict: bool = True):
         cfg = model.cfg
@@ -133,7 +210,8 @@ class TensorParallel:
                 or (ssm_ok and _PACKED.search(path))))
         self._columns = (ssm_columns(cfg, self.index, n)
                          if ssm_ok and n > 1 else {})
-        self._split = {path: TP in spec for path, spec in flat.items()}
+        self._split = {path: n > 1 and TP in spec
+                       for path, spec in flat.items()}
         self.heads = {}
         for path in paths:
             if _QO.search(path) and path.endswith("/wq/w"):
@@ -161,9 +239,32 @@ class TensorParallel:
         self.embed_split = self.split("embed/e")
         self.head_split = (self.embed_split if cfg.tie_embeddings
                            else self.split("lm_head/w"))
+        # the leaves each rank holds whole but reads only in part, whose
+        # gradients are summed over the model axis after the backward:
+        # the KV projections a split attention replicates (C13: each rank's
+        # query heads read their KV heads through kv_range, or the one KV
+        # head), and the B and C columns of the relaid Mamba2 in_proj and
+        # conv_w (C14: whole on every rank, each rank's heads read them).
+        # Replicated leaves of a region that runs whole on every rank (a
+        # replicated attention, time mix or Mamba2 mixer) and chan/wr,
+        # which gates the summed wv output, get their whole gradient on
+        # every rank and are not summed.  None sums the whole leaf, a
+        # tensor of column indices those columns of the local tensor.
+        self.grad_sums = {}
+        for path in self.replicated:
+            if _KV.search(path) and self.split(path[:-len("wk/w")] + "wo/w"):
+                self.grad_sums[path] = None
+        if self._columns:
+            d_inner, _, _, ns = ssm_dims(cfg)
+            di = d_inner // n
+            for path in self.relaid:
+                if _PACKED.search(path):
+                    lo = di if path.endswith("conv_w") else 2 * di
+                    self.grad_sums[path] = torch.arange(lo, lo + 2 * ns)
         self.all_reduces = 0
         self.broadcasts = 0
         self.token_checks = 0
+        self.comm: dict = {}
 
     def split(self, path: str) -> bool:
         """Whether the parameter at ``path`` is split over the ranks."""
@@ -210,15 +311,42 @@ class TensorParallel:
         """This rank's slice of every leaf of a whole parameter tree."""
         return map_with_paths(self.place, params)
 
+    def unplace(self, path: str, parts: list) -> torch.Tensor:
+        """The whole parameter at ``path`` from every model rank's slice
+        (``parts`` in model-axis order): the inverse of ``place``, the
+        relaid Mamba2 columns put back in the reference's layout."""
+        if self._columns and _PACKED.search(path):
+            key = "conv_w" if path.endswith("conv_w") else "in_proj"
+            d_inner, nh, _, ns = ssm_dims(self.cfg)
+            width = d_inner + 2 * ns + (d_inner + nh) * (key == "in_proj")
+            whole = parts[0].new_empty(parts[0].shape[:-1] + (width,))
+            for m, part in enumerate(parts):
+                cols = ssm_columns(self.cfg, m, self.size)[key]
+                whole[..., cols.to(part.device)] = part
+            return whole
+        spec = leaf_at(self.specs, path)
+        dims = [i for i, entry in enumerate(spec) if entry == TP]
+        return torch.cat(parts, dims[0]) if dims else parts[0]
+
     # ------------------------------------------------------ collectives
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum ``x`` over the model axis, in place; a trace's meta tensor
-        (capture) passes through, since it has no values to sum."""
+    def reduce_in_place(self, t: torch.Tensor, kind: str) -> None:
+        """``t`` summed over the model axis, in place, counted in
+        ``comm[kind]``."""
+        all_reduce_timed(t, self.group, self.comm, kind)
+
+    def all_reduce(self, x: torch.Tensor,
+                   kind: str = "tp_sum") -> torch.Tensor:
+        """Sum ``x`` over the model axis: in place, or, where ``x``
+        needs a gradient, into a copy whose gradient passes back
+        unchanged; a trace's meta tensor (capture) passes through, since
+        it has no values to sum."""
         if x.device.type == "meta":
             return x
-        x = x.contiguous()
-        dist.all_reduce(x, group=self.group)
         self.all_reduces += 1
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _SumOverModel.apply(x, self, kind)
+        x = x.contiguous()
+        self.reduce_in_place(x, kind)
         return x
 
     def reduce(self, x: torch.Tensor, path: str) -> torch.Tensor:
@@ -226,6 +354,47 @@ class TensorParallel:
         the ranks when that projection is split by rows (a partial sum
         on each), else as it is."""
         return self.all_reduce(x) if self.split(path) else x
+
+    def enter(self, x: torch.Tensor, path: str) -> torch.Tensor:
+        """``x`` as it enters the region that the projection at ``path``
+        closes: where that region is split over the ranks and ``x`` needs
+        a gradient, the identity whose backward sums the gradient over
+        the model axis; else ``x`` itself."""
+        if self.split(path) and torch.is_grad_enabled() and x.requires_grad:
+            return _EnterSplit.apply(x, self)
+        return x
+
+    def columns_in_zeros(self, local: torch.Tensor, width: int):
+        """(a zero tensor ``width`` wide holding ``local`` at this rank's
+        columns, the first of them)."""
+        full = local.new_zeros(local.shape[:-1] + (width,))
+        lo = self.index * local.shape[-1]
+        full[..., lo:lo + local.shape[-1]] = local
+        return full, lo
+
+    def gather_columns(self, local: torch.Tensor, width: int) -> torch.Tensor:
+        """The ranks' column blocks (the vocab-parallel logits) gathered
+        into ``width`` columns on every rank, exactly."""
+        if torch.is_grad_enabled() and local.requires_grad:
+            self.all_reduces += 1
+            return _GatherColumns.apply(local, self, width)
+        return self.all_reduce(self.columns_in_zeros(local, width)[0],
+                               "logits_gather")
+
+    def sum_grad(self, path: str, g: torch.Tensor) -> torch.Tensor:
+        """The gradient ``g`` of the leaf at ``path`` with ``grad_sums``'
+        sum over the model axis applied (in place where it is one)."""
+        if path not in self.grad_sums:
+            return g
+        cols = self.grad_sums[path]
+        if cols is None:
+            g = g.contiguous()
+            self.reduce_in_place(g, "tp_grad_sum")
+            return g
+        cols = cols.to(g.device)
+        part = g.index_select(-1, cols)
+        self.reduce_in_place(part, "tp_grad_sum")
+        return g.index_copy(-1, cols, part)
 
     def broadcast(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` as the model axis's first rank holds it, in place on

@@ -53,11 +53,12 @@ def wkv_chunked(r, k, v, logw, u, *, chunk: int, init_state=None):
 
 def rwkv_time_apply(p: Params, cfg, x: torch.Tensor, *, state=None,
                     shift=None, decode: bool = False,
-                    heads: int | None = None):
+                    heads: int | None = None, enter=None):
     """Returns (y, (state, shift_carry)).  ``heads``: the heads this call
     runs (a tensor-parallel rank's, whose ``wr``..``ww`` columns, ``u``
     and ``w_bias`` it holds; ``wo``'s output is then its partial sum);
-    all of them when None."""
+    all of them when None.  ``enter`` maps each mixed input as it enters
+    its split projection (``TensorParallel.enter``)."""
     nh, hd = rwkv_dims(cfg)
     nh = heads or nh
     B, S, _ = x.shape
@@ -68,6 +69,8 @@ def rwkv_time_apply(p: Params, cfg, x: torch.Tensor, *, state=None,
     xv = x + (prev - x) * mix[2]
     xw = x + (prev - x) * mix[3]
     xg = x + (prev - x) * mix[4]
+    if enter is not None:
+        xr, xk, xv, xw, xg = map(enter, (xr, xk, xv, xw, xg))
     f32 = torch.float32
     r = dense(p["wr"], xr).reshape(B, S, nh, hd).to(f32)
     k = dense(p["wk"], xk).reshape(B, S, nh, hd).to(f32)
@@ -101,13 +104,16 @@ def rwkv_time_apply(p: Params, cfg, x: torch.Tensor, *, state=None,
 
 
 def rwkv_channel_apply(p: Params, cfg, x: torch.Tensor, *, shift=None,
-                       reduce=None):
+                       reduce=None, enter=None):
     """Returns (y, shift_carry).  ``reduce`` sums the ``wv`` output over
     tensor-parallel ranks (each holds a share of d_ff) before the
-    receptance gates it."""
+    receptance gates it; ``enter`` maps ``wk``'s input as it enters that
+    split region (``wr``, whole on every rank, reads its own)."""
     prev, new_shift = _token_shift(x, shift)
     mix = p["mix"].to(x.dtype)
     xk = x + (prev - x) * mix[0]
+    if enter is not None:
+        xk = enter(xk)
     xr = x + (prev - x) * mix[1]
     k = torch.square(torch.relu(dense(p["wk"], xk)))
     v = dense(p["wv"], k)

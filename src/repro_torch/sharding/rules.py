@@ -198,26 +198,50 @@ def param_shardings(params: dict, mesh, *, mode: str = "fsdp",
                                       mode=mode, strict=strict), params)
 
 
-def local_slice(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
-    """This rank's block of ``t`` under ``spec``: along a split dim, the
-    block at the rank's index on the entry's axes (the first axis of a
-    tuple entry the most significant, as jax lays a mesh out).  A view;
-    ``t`` itself when no dim is split."""
+def _block_index(shape, spec: P, mesh, coords: dict) -> tuple:
+    """The index of the block at mesh ``coords`` of a tensor of ``shape``
+    under ``spec``: along a split dim, the block at the index of the
+    coordinates on the entry's axes (the first axis of a tuple entry the
+    most significant, as jax lays a mesh out)."""
     index = []
-    for dim, entry in zip(t.shape, spec):
-        axes = _axes(entry)
+    for dim, entry in zip(shape, spec):
         n = _axis_size(mesh, entry)
         if n == 1:
             index.append(slice(None))
             continue
         i = 0
-        for a in axes:
-            i = i * mesh.shape[a] + mesh.coords[a]
+        for a in _axes(entry):
+            i = i * mesh.shape[a] + coords[a]
         step = dim // n
         index.append(slice(i * step, (i + 1) * step))
+    return tuple(index)
+
+
+def local_slice(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec`` (at ``mesh.coords``).  A
+    view; ``t`` itself when no dim is split."""
+    index = _block_index(t.shape, spec, mesh, mesh.coords)
     if all(s == slice(None) for s in index):
         return t
-    return t[tuple(index)]
+    return t[index]
+
+
+def assemble(blocks: dict, spec: P, mesh) -> torch.Tensor:
+    """The inverse of ``local_slice``: the whole tensor from the blocks of
+    the ranks that split it, keyed by each rank's coordinates (a dict of
+    axis name -> index, or a tuple in ``mesh.axis_names`` order).  Every
+    block the spec names must be there once at least; ranks that hold the
+    same block may each give it."""
+    first = next(iter(blocks.values()))
+    entries = list(spec) + [None] * (first.ndim - len(spec))
+    shape = tuple(d * _axis_size(mesh, e)
+                  for d, e in zip(first.shape, entries))
+    whole = first.new_empty(shape)
+    for coords, block in blocks.items():
+        if not isinstance(coords, dict):
+            coords = dict(zip(mesh.axis_names, coords))
+        whole[_block_index(shape, entries, mesh, coords)] = block
+    return whole
 
 
 def local_copy(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:

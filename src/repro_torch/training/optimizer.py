@@ -74,7 +74,7 @@ def global_norm(tree) -> torch.Tensor:
 
 @torch.no_grad()
 def apply_updates(params, grads, state, cfg: AdamWConfig, *,
-                  donate: bool = False):
+                  donate: bool = False, norm=global_norm):
     """Returns (new_params, new_state, metrics {"grad_norm", "lr"}).
 
     The reference's arithmetic: the lr from the step before the
@@ -83,9 +83,12 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, *,
     dimensions only.  With ``donate`` the parameters and moments are
     updated in place and returned (the counterpart of the reference's
     donated buffers under ``jit``): the same values, without a second
-    copy of the state."""
+    copy of the state.  On a rank's slices of a sharded tree (moments
+    shaped as the slices) ``norm`` is the layout's global norm over the
+    whole tree (``dist.fsdp.ShardedLayout.global_norm``); a slice has its
+    whole leaf's ``ndim``, so the decay rule holds as it is."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-12), max=1.0)
     lr = schedule(cfg, state["step"])
     b1, b2 = cfg.beta1, cfg.beta2

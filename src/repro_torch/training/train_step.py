@@ -5,16 +5,23 @@ the reference's ``training/train_step.py``).
 accumulate in fp32 zeros, in microbatch order, times 1/microbatches.
 ``jit_train_step`` is the step a run takes (the counterpart of the
 reference's pjit-wrapped step): it updates the parameters and the
-moments in place, as the reference donates them, and over a data-parallel
-``torch.distributed`` group it reduces the gradients before the update,
-by the exact fp32 mean or by the int8 error-feedback all-reduce
-(``grad_compression``), and reports the mean loss over the ranks.
+moments in place, as the reference donates them.  Over a data-parallel
+``torch.distributed`` group of replicas it reduces the gradients before
+the update, by the exact fp32 mean or by the int8 error-feedback
+all-reduce (``grad_compression``), and reports the mean loss over the
+ranks.  On a sharded model (``dist.serve.shard_model``: TP over the
+mesh's model axis, FSDP over its data axis) every rank updates its own
+slices: a data-split leaf's gradient comes out of the FSDP gather's
+backward already reduced, the others take the exact mean over the data
+group, and the leaves each rank reads only in part are summed over the
+model axis (``dist.fsdp.ShardedLayout``).
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
+from ..dist.fsdp import ShardedLayout
 from ..models.model import Model
 from . import optimizer as opt
 from .grad_compression import (comm_stats, exact_mean, init_error_buffers,
@@ -83,7 +90,7 @@ def make_train_step(model: Model, cfg_opt: opt.AdamWConfig,
 
 
 def jit_train_step(model: Model, cfg_opt: opt.AdamWConfig, group=None, *,
-                   microbatches: int = 1, remat: bool = True,
+                   mesh=None, microbatches: int = 1, remat: bool = True,
                    compress: bool = False):
     """The step a run takes: parameters and moments updated in place.
 
@@ -94,7 +101,16 @@ def jit_train_step(model: Model, cfg_opt: opt.AdamWConfig, group=None, *,
     all-reduce, whose error buffers the step keeps from one call to the
     next (``step.errors``; they are not checkpointed).  The loss in the
     metrics is the mean over the ranks.  ``step.comm`` counts the last
-    step's all_reduces: calls, bytes and host seconds inside them."""
+    step's all_reduces: calls, bytes and host seconds inside them.
+
+    A sharded model (``model.tp`` set) trains on its ``mesh``: each rank
+    takes its data coordinate's rows and holds its slices of the
+    parameters and moments; ``step.comm`` then counts the step's
+    collectives by kind (``dist.fsdp``).  Gradient compression stays
+    with replicated data parallelism, as in the reference."""
+    if model.tp is not None:
+        return _sharded_step(model, cfg_opt, mesh, group, compress,
+                             microbatches=microbatches, remat=remat)
     data_parallel = group is not None or dist.is_initialized()
 
     def step(params, opt_state, batch):
@@ -117,4 +133,31 @@ def jit_train_step(model: Model, cfg_opt: opt.AdamWConfig, group=None, *,
 
     step.errors = None
     step.comm = comm_stats()
+    return step
+
+
+def _sharded_step(model: Model, cfg_opt: opt.AdamWConfig, mesh, group,
+                  compress: bool, *, microbatches: int, remat: bool):
+    if mesh is not None and mesh is not model.tp.mesh:
+        raise ValueError("the model is sharded on another mesh")
+    if group is not None or compress:
+        raise ValueError("a sharded model reduces over its mesh's groups; "
+                         "group= and compress= belong to replicated data "
+                         "parallelism")
+    layout = ShardedLayout(model)
+
+    def step(params, opt_state, batch):
+        layout.comm.clear()
+        loss, grads = _grads_of(model, params, batch,
+                                microbatches=microbatches, remat=remat)
+        grads = layout.reduce_grads(grads)
+        loss = layout.mean_over_data(loss)
+        params, opt_state, om = opt.apply_updates(
+            params, grads, opt_state, cfg_opt, donate=True,
+            norm=layout.global_norm)
+        step.comm = {k: dict(v) for k, v in layout.comm.items()}
+        return params, opt_state, {"loss": loss, **om}
+
+    step.layout = layout
+    step.comm = {}
     return step

@@ -647,6 +647,37 @@ def test_cuda_train_steps_equal_cpu(cuda_device, arch):
 
 
 @pytest.mark.cuda
+def test_cuda_sharded_step_and_fsdp_gather_equal_cpu(cuda_device):
+    """Two gloo ranks on the card against two on the CPU (the same fp32
+    masters, made on the CPU): a TP 2 step of llama3-8b smoke, its loss
+    and every rank's reduced gradient slice within 1e-4 of scale; and
+    FSDP's gather of the widened MLP's layers over (2, 1) and its
+    backward, the gathered layers bitwise and the reduce-scattered
+    gradients within 1e-6 (``tests/torch_train_ranks.py``)."""
+    from repro_torch.launch.mesh import run_ranks
+    from torch_train_ranks import sharded_jobs
+    jobs = [dict(kind="grads", arch="llama3-8b", mesh=(1, 2), mode="tp",
+                 seq=16, batch=4),
+            dict(kind="gather", arch="llama3-8b", mesh=(2, 1), mode="fsdp",
+                 overrides={"d_ff": 1024, "vocab": 1024}, seq=16, batch=4)]
+    out = {dev: run_ranks(sharded_jobs, 2, [dict(j, device=dev)
+                                            for j in jobs], timeout_s=300)
+           for dev in ("cpu", "cuda")}
+    for cpu, card in zip(out["cpu"], out["cuda"]):
+        (g_cpu, f_cpu), (g_card, f_card) = cpu, card
+        assert abs(g_card["loss"] - g_cpu["loss"]) <= 1e-4 * max(
+            1.0, abs(g_cpu["loss"]))
+        for path, want in g_cpu["grads"].items():
+            torch.testing.assert_close(
+                g_card["grads"][path], want, rtol=0,
+                atol=1e-4 * max(1.0, float(want.abs().max())))
+        assert all(torch.equal(a, b) for a, b in zip(f_card["wholes"],
+                                                     f_cpu["wholes"]))
+        torch.testing.assert_close(f_card["grad"], f_cpu["grad"], rtol=0,
+                                   atol=1e-6)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("arch,knob", [("llama3-8b", "fused_mlp"),
                                        ("rwkv6-7b", "use_pallas_scan"),
                                        ("zamba2-2.7b", "use_pallas_scan")])

@@ -17,7 +17,8 @@
   port's (the all-reduces reassociate the sums), all-reduce counts are
   exact, and there are no solver calls after the prewarm.
 - The mesh's refusals: nccl with fewer cards than ranks, a mesh that does
-  not tile the world; ``shard_engine``'s: FSDP.
+  not tile the world.  ``shard_engine(mode="fsdp")`` is held in
+  ``test_torch_fsdp.py``.
 
 The other families under TP are in ``test_torch_dist_families.py``, the
 scheduler and the router under TP in ``test_torch_dist_sched.py``.
@@ -418,16 +419,6 @@ def test_shard_engine_takes_every_family(one_rank, arch):
     assert all(a.shape == b.shape for (_, a), (_, b) in zip(
         flatten_with_paths(eng.params), flatten_with_paths(params)))
     assert np.array_equal(eng.generate(prompts, extra_batch=extra), want)
-
-
-def test_shard_engine_refuses_fsdp(one_rank):
-    from repro_torch.dist.serve import shard_engine
-    model = build_model(get_config("llama3-8b", smoke=True))
-    eng = Engine(model, model.init_params(torch.Generator(), "cpu"),
-                 ServeConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        shard_engine(eng, model_axis=1, mode="fsdp")
-    assert eng.model is model
 
 
 def _serve_smoke(*args: str) -> subprocess.CompletedProcess:
