@@ -110,6 +110,13 @@ one's launch counts:
   rank's MLP, 2048 x 2816 x 2048 and back, at shapes phase 3 held); its
   parameters at 2 layers saved on (2, 2) and restored onto (4, 1),
   bitwise.
+- the Hopper roofline against measured steps (phase 22): phase 5's
+  ``llama3-8b`` decode step (profiled there) and phase 20b's
+  ``stablelm-1.6b`` train step, each analyzed on meta tensors
+  (``launch.hlo_analysis``): the analyzed B1 and ``goma_combine`` calls
+  and shapes == the profiled step's == phase 5's a pass, and each bound
+  max(t_compute, t_memory) at most the step's device busy time; the
+  shares and the train step's MFU are printed.
 
 Imports nothing of JAX and nothing of the reference package.
 
@@ -162,10 +169,15 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-TF32_FLOPS = 495e12   # the tensor cores' TF32 rate, which 3xTF32 runs at
+# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit), from the
+# port's roofline, their one home
+from repro_torch.launch import roofline  # noqa: E402
+
+HBM_BYTES_PER_S = roofline.HBM_BW
+PEAK_FLOPS = {torch.bfloat16: roofline.PEAK_FLOPS["bfloat16"],
+              torch.float32: roofline.PEAK_FLOPS["float32"]}
+# the tensor cores' TF32 rate, which 3xTF32 runs at
+TF32_FLOPS = roofline.PEAK_FLOPS["tf32"]
 # kernel vs its plain version: the reference's kernel tolerances
 # (tests/test_kernels.py), as rtol = atol; fp32 sums differ only in order,
 # bf16 outputs may differ by one rounding of the output
@@ -877,43 +889,6 @@ def ssd_ops(B, S, H, P, N, C) -> int:
     return B * (S // C) * (per_row + H * per_head)
 
 
-# the scan kernels' sub-chunk and B3's decay-factoring block (csrc/)
-SUB, BLK = 32, 16
-
-
-def wkv6_work(B, S, H, P) -> tuple[int, int]:
-    """(product flops, other operations) of the factored WKV6 scan, per
-    sub-chunk of SUB tokens and head.  Products: the scores below the
-    diagonal blocks (BLK x BLK x P), y's intra part (block rows of 16 and
-    32 keys) and r S, and the state update k^T v.  Other operations (an
-    exp counts as one): the diagonal blocks' exact terms (sub, exp, two
-    multiplies, an add) and bonus, the factors of the block below them,
-    the cumsum, the decay folds and the state's decay."""
-    products = 2 * (BLK * BLK * P + (BLK * BLK + BLK * 2 * BLK) * P
-                    + 2 * SUB * P * P)
-    pairs = 2 * BLK * (BLK - 1) // 2
-    other = (pairs * P * 5 + SUB * P * 3 + 2 * BLK * P * 3 + SUB * P
-             + SUB * P * 5 + P + 2 * P * P)
-    n = B * H * -(-S // SUB)
-    return n * products, n * other
-
-
-def ssd_work(B, S, H, P, N) -> tuple[int, int]:
-    """(product flops, other operations) of the SSD scan as the kernels do
-    it: C Bm^T once per (batch, sub-chunk); per sub-chunk and head y's
-    intra part (block rows of 16 and 32 keys), C S^T and the state update.
-    Other operations (an exp counts as one): the cumsum and its exps, the
-    decayed scores (sub, exp, multiply), xh dt, the suffix and exp(cum)
-    scalings, and the state's decay."""
-    subs = -(-S // SUB)
-    products = (B * subs * 2 * SUB * SUB * N
-                + B * H * subs * 2 * ((BLK * BLK + BLK * 2 * BLK) * P
-                                      + 2 * SUB * N * P))
-    other = B * H * subs * (SUB * 5 + SUB * (SUB + 1) // 2 * 3
-                            + SUB * P * 4 + 2 * P * N)
-    return products, other
-
-
 def scan_bound(nbytes: int, products: int, other: int) -> tuple[float, str]:
     """The least time the card could take for a scan's work: the largest
     of its bytes over the memory rate, its products over the TF32
@@ -962,7 +937,8 @@ def check_wkv6(shape, chunk, dtype, gen, *, decay="typical",
     from repro_torch.kernels import _build
     from repro_torch.kernels.goma_gemm import DTYPE_CODES
     from repro_torch.kernels.ref import wkv6_ref
-    from repro_torch.kernels.wkv6 import wkv6_scan, wkv6_scan_plain
+    from repro_torch.kernels.wkv6 import (wkv6_bytes, wkv6_scan,
+                                          wkv6_scan_plain, wkv6_work)
     B, S, H, P = shape
     r, k, v = (rand(shape, dtype, gen, 0.5) for _ in range(3))
     logw = WKV_LOGW[decay](torch.randn(shape, generator=gen,
@@ -981,9 +957,7 @@ def check_wkv6(shape, chunk, dtype, gen, *, decay="typical",
                SCAN_Y_TOL[dtype])}
     if timed:
         lib, code = _build.load(), DTYPE_CODES[dtype]
-        # bytes: r, k, v, logw read and y written once, u, the final state
-        nbytes = (5 * B * S * H * P * dtype.itemsize + H * P * 4
-                  + B * H * P * P * 4)
+        nbytes = wkv6_bytes(B, S, H, P, dtype.itemsize)
         row.update(scan_timing(
             lambda: wkv6_scan(r, k, v, logw, u, chunk=chunk),
             lambda: wkv6_scan_plain(r, k, v, logw, u, chunk=chunk), nbytes,
@@ -1005,7 +979,8 @@ def check_ssd(shape, chunk, dtype, gen, *, decay="typical",
     runs."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.goma_gemm import DTYPE_CODES
-    from repro_torch.kernels.mamba2_ssd import ssd_scan, ssd_scan_plain
+    from repro_torch.kernels.mamba2_ssd import (ssd_bytes, ssd_scan,
+                                                ssd_scan_plain, ssd_work)
     from repro_torch.kernels.ref import ssd_ref
     B, S, H, P, N = shape
     xh = rand((B, S, H, P), dtype, gen, 0.5)
@@ -1027,9 +1002,7 @@ def check_ssd(shape, chunk, dtype, gen, *, decay="typical",
                           torch.zeros_like(a_log)), SCAN_Y_TOL[dtype])}
     if timed:
         lib, code = _build.load(), DTYPE_CODES[dtype]
-        # bytes: xh, dt, Bm, Cm read and y written once, a_log, the state
-        nbytes = ((2 * B * S * H * P + B * S * H + 2 * B * S * N)
-                  * dtype.itemsize + H * 4 + B * H * P * N * 4)
+        nbytes = ssd_bytes(B, S, H, P, N, dtype.itemsize)
         row.update(scan_timing(
             lambda: ssd_scan(xh, dt, a_log, Bm, Cm, chunk=chunk),
             lambda: ssd_scan_plain(xh, dt, a_log, Bm, Cm, chunk=chunk),
@@ -1272,7 +1245,8 @@ def make_full(arch: str, **knobs):
 
 def static_full(cfg, model, params, run: dict, checked: set, smi: str,
                 out: pathlib.Path | None,
-                profile_name: str | None = None, timed_runs: int = 1) -> dict:
+                profile_name: str | None = None, timed_runs: int = 1,
+                profile_decode: bool = False) -> dict:
     """One static generate at full width (``run``: batch, prompt_len,
     new_tokens; the frontend's inputs from the seed), with exact launch
     counts (expected_launches), every launch at a shape phase 3 held and
@@ -1280,7 +1254,8 @@ def static_full(cfg, model, params, run: dict, checked: set, smi: str,
     tokens (tokens/s from their median, every reading kept).  With
     ``out``, one more generate runs under the profiler
     (``out/<profile_name>.{json,txt}``, by default
-    ``profile_serve_<arch>``)."""
+    ``profile_serve_<arch>``); with ``profile_decode``, one decode step
+    (``decode_step_profile``)."""
     from repro_torch.core.solver import reset_solver_stats, solver_stats
     from repro_torch.serving import Engine, ServeConfig
     B, S, new = run["batch"], run["prompt_len"], run["new_tokens"]
@@ -1341,13 +1316,44 @@ def static_full(cfg, model, params, run: dict, checked: set, smi: str,
         serve["profile"] = profile_run(
             lambda: eng.generate(prompts, extra_batch=extra), smi, out,
             profile_name or f"profile_serve_{cfg.name}")
+    if profile_decode:
+        serve["decode_step"] = decode_step_profile(eng, prompts, smi, out)
     return {"launches": counts, "shapes": shapes, "serve": serve,
             "prompts": prompts, "extra": extra, "tokens": tokens}
 
 
+def decode_step_profile(eng, prompts: np.ndarray, smi: str,
+                        out: pathlib.Path | None) -> dict:
+    """Phase 22a's measurement, taken on phase 5's engine: one decode step
+    after the prompts' prefill (at position prompt_len of the engine's
+    cache), once to warm, once recording its kernel calls by shape, then
+    once under the profiler (device only): its device busy and wall
+    milliseconds."""
+    model, params = eng.model, eng.params
+    B, S = prompts.shape
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, {"tokens": torch.as_tensor(
+            prompts, dtype=torch.int64, device="cuda")},
+            max_len=eng.cfg.cache_len)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        model.decode_step(params, cache, tok, S)
+        seen = {}
+        with recording_shapes(seen):
+            model.decode_step(params, cache, tok, S)
+        prof = profile_run(lambda: model.decode_step(params, cache, tok, S),
+                           smi, out, "profile_decode_step", host_ops=False)
+    return {"batch": B, "index": S, "cache_len": eng.cfg.cache_len,
+            "calls": {f"{k[0]} {'x'.join(map(str, k[1]))} {k[2]}": n
+                      for k, n in sorted(seen.items())},
+            **{k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                    "device_busy_share",
+                                    "device_kernel_launches")}}
+
+
 def serve_full(arch: str, prompt_len: int, smi: str,
                out: pathlib.Path | None, profile_name: str, checked: set,
-               *, check_paths: bool, timed_runs: int = 1, **knobs) -> dict:
+               *, check_paths: bool, timed_runs: int = 1,
+               profile_decode: bool = False, **knobs) -> dict:
     """``arch`` at its published widths, bf16, random weights made on the
     card, with the config ``knobs`` set.  With ``check_paths`` the first
     prefill's logits are held against the plain path's on the card
@@ -1369,7 +1375,8 @@ def serve_full(arch: str, prompt_len: int, smi: str,
     run = static_full(cfg, model, params,
                       dict(batch=FULL["batch"], prompt_len=prompt_len,
                            new_tokens=FULL["new_tokens"]),
-                      checked, smi, out, profile_name, timed_runs)
+                      checked, smi, out, profile_name, timed_runs,
+                      profile_decode)
     if paths is not None:
         run["serve"]["prefill_vs_plain_path"] = paths
     return run
@@ -5118,6 +5125,114 @@ def sharded_training(checked: set, smi: str, store_root: pathlib.Path,
     return {"report": report, "launches": runs, "shapes": shapes}
 
 
+# ------------------------------------------------------------- phase 22
+def roofline_phase(decode: dict, train: dict, smi: str,
+                   out: pathlib.Path | None) -> dict:
+    """Phase 22: the Hopper roofline of two measured steps, from the
+    port's analyzer on meta tensors (``launch.hlo_analysis``), against
+    what phases 5 and 20b measured on the card in this run.  22a: phase
+    5's llama3-8b decode step (batch 4, bf16, fused MLP, all 32 layers, at
+    its profiled position and cache): the analyzer's B1 and goma_combine
+    calls and their shapes must be the profiled step's and phase 5's a
+    pass, and its bound max(t_compute, t_memory) at most the step's device
+    busy time.  22b: phase 20b's stablelm-1.6b train step (8 x 512, fp32
+    masters, bf16, full remat, AdamW): its bound at most 20b's profiled
+    device busy time; its model flops over the median step's wall time
+    and the bf16 peak is the measured MFU."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.hlo_analysis import analyze_program
+    from repro_torch.launch.roofline import Roofline, model_flops_estimate
+    from repro_torch.models import build_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import jit_train_step
+    gen = torch.Generator()
+    # 22a
+    cfg = dataclasses.replace(get_config(FULL["arch"]), fused_mlp=True)
+    model = build_model(cfg)
+    params = model.init_params(gen, "meta")
+    cache = model.init_cache(decode["batch"], decode["cache_len"], "meta")
+    tok = torch.empty((decode["batch"], 1), dtype=torch.int64,
+                      device="meta")
+
+    def step(params, cache, tok):
+        with torch.inference_mode():
+            return model.decode_step(params, cache, tok, decode["index"])
+    a = analyze_program(step, params, cache, tok)
+    rl = Roofline(a["flops"], a["bytes"], 0, 1,
+                  flops_by_dtype=a["flops_by_dtype"])
+    calls = {f"{name} {shape} bfloat16": n
+             for name, row in a["kernels"].items()
+             for shape, n in row["shapes"].items()}
+    per_pass = {k: v for k, v in expected_launches(cfg, 1).items() if v}
+    if calls != decode["calls"] or per_pass != {
+            k: v["calls"] for k, v in a["kernels"].items()}:
+        raise AssertionError(f"analyzed kernel calls {calls} != the "
+                             f"profiled step's {decode['calls']} or phase "
+                             f"5's a pass {per_pass}")
+    bound = max(rl.t_compute, rl.t_memory) * 1e3
+    dec = {"flops_by_dtype": a["flops_by_dtype"], "bytes": a["bytes"],
+           "t_compute_ms": rl.t_compute * 1e3,
+           "t_memory_ms": rl.t_memory * 1e3, "bound_ms": bound,
+           "bound_by": rl.bottleneck, "kernels": a["kernels"],
+           "trace_s": a["trace_s"], "device_busy_ms":
+           decode["device_busy_ms"], "wall_ms": decode["wall_ms"],
+           "bound_over_busy": bound / decode["device_busy_ms"],
+           "bound_over_wall": bound / decode["wall_ms"]}
+    print(f"  22a llama3-8b decode step on {smi}: analyzer {a['flops']:.6g} "
+          f"flops {a['flops_by_dtype']}, {a['bytes']:.6g} bytes, "
+          f"t_compute {dec['t_compute_ms']} ms, t_memory "
+          f"{dec['t_memory_ms']} ms (traced in {a['trace_s']:.1f} s); "
+          f"device busy {decode['device_busy_ms']} ms of wall "
+          f"{decode['wall_ms']} ms; bound / busy {dec['bound_over_busy']}, "
+          f"bound / wall {dec['bound_over_wall']}; kernel calls {calls}")
+    if bound > decode["device_busy_ms"]:
+        raise AssertionError(f"22a: the bound {bound} ms exceeds the device "
+                             f"busy {decode['device_busy_ms']} ms: a counting "
+                             f"fault")
+    # 22b
+    del model, params, cache
+    tcfg, tmodel = full_model()
+    params = tmodel.init_params(gen, "meta", masters=True)
+    batch = tmodel.input_specs(ShapeSpec("train", TRAIN["seq"],
+                                         TRAIN["batch"], "train"))
+    a = analyze_program(jit_train_step(tmodel, full_optimizer(),
+                                       remat=True),
+                        params, opt.init_state(params), batch)
+    rl = Roofline(a["flops"], a["bytes"], 0, 1,
+                  flops_by_dtype=a["flops_by_dtype"])
+    n_params = sum(t.numel() for t in leaves(params))
+    model_flops = model_flops_estimate(
+        tcfg, ShapeSpec("train", TRAIN["seq"], TRAIN["batch"], "train"),
+        n_params)
+    busy = train["profiled_step"]["device_busy_ms"]
+    step_s = train["median_step_s"]
+    bound = max(rl.t_compute, rl.t_memory) * 1e3
+    tr = {"flops_by_dtype": a["flops_by_dtype"], "bytes": a["bytes"],
+          "t_compute_ms": rl.t_compute * 1e3,
+          "t_memory_ms": rl.t_memory * 1e3, "bound_ms": bound,
+          "bound_by": rl.bottleneck, "trace_s": a["trace_s"],
+          "memory": a["memory"], "model_flops": model_flops,
+          "device_busy_ms": busy,
+          "profiled_wall_ms": train["profiled_step"]["wall_ms"],
+          "median_step_s": step_s, "bound_over_busy": bound / busy,
+          "compute_over_busy": rl.t_compute * 1e3 / busy,
+          "mfu": model_flops / (step_s * roofline.PEAK_FLOPS["bfloat16"])}
+    print(f"  22b stablelm-1.6b train step on {smi}: analyzer "
+          f"{a['flops']:.6g} flops {a['flops_by_dtype']}, {a['bytes']:.6g} "
+          f"bytes, t_compute {tr['t_compute_ms']} ms, t_memory "
+          f"{tr['t_memory_ms']} ms (traced in {a['trace_s']:.1f} s); device "
+          f"busy {busy} ms, median step {step_s} s; bound / busy "
+          f"{tr['bound_over_busy']}, model flops {model_flops:.6g}, MFU "
+          f"{tr['mfu']}")
+    if bound > busy:
+        raise AssertionError(f"22b: the bound {bound} ms exceeds the device "
+                             f"busy {busy} ms: a counting fault")
+    report = {"device": smi, "decode": dec, "train": tr}
+    if out is not None:
+        (out / "roofline.json").write_text(json.dumps(report, indent=1))
+    return report
+
+
 def profile_run(fn, smi: str, out: pathlib.Path | None, name: str, *,
                 host_ops: bool = True) -> dict:
     """One more run of fn (a generate, a scheduler replay) under
@@ -5377,7 +5492,8 @@ def main() -> None:
     with phase("5 serve llama3-8b at full width (B1)"):
         full = serve_full(FULL["arch"], FULL["prompt_len"], smi, out,
                           "profile_serve", checked, check_paths=False,
-                          timed_runs=PHASE5_TIMED_RUNS, fused_mlp=True)
+                          timed_runs=PHASE5_TIMED_RUNS, profile_decode=True,
+                          fused_mlp=True)
         runs["serve llama3-8b full width"] = full["launches"]
         shapes["serve llama3-8b full width"] = full["shapes"]
     free_device()
@@ -5534,6 +5650,13 @@ def main() -> None:
         runs.update(sharded["launches"])
         shapes.update(sharded["shapes"])
     free_device()
+    with phase("22 the Hopper roofline against measured steps: phase 5's "
+               "llama3-8b decode step and phase 20b's stablelm-1.6b train "
+               "step, analyzed on meta tensors"):
+        t0 = time.perf_counter()
+        roof = roofline_phase(full["serve"]["decode_step"],
+                              train["report"]["full"], smi, out)
+        print(f"  phase 22: {time.perf_counter() - t0:.1f} s")
 
     b1 = next(r for r in b1_rows if r["shape"] == [4, 14336, 4096])
     b2 = next(r for r in b2_rows if r["shape"] == [4, 128, 64])
@@ -5601,6 +5724,7 @@ def main() -> None:
              "tensor_parallel_rest": tp_more["serve"],
              "training": train["report"],
              "sharded_training": sharded["report"],
+             "roofline": roof,
              "launches": runs,
              "shapes": shapes,
              "kernels": kernels,

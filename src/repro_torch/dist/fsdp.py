@@ -83,8 +83,8 @@ class FullyShardedData:
         tp = model.tp
         mesh = tp.mesh
         self.mesh = mesh
-        self.size = mesh.shape.get("data", 1)
-        self.index = mesh.coords["data"] if mesh.coords is not None else 0
+        self.size = mesh.data_ranks
+        self.index = mesh.data_index
         self.group = mesh.data_group
         self.comm = tp.comm
         gen = torch.Generator()
@@ -137,9 +137,12 @@ class FullyShardedData:
         """The whole ``shape`` from the data ranks' blocks on ``dim`` (or,
         with ``dim`` None, from the one rank that ``owned`` says holds
         it), each written into zeros and summed by one all_reduce; a
-        trace's meta tensor gets an empty one of the whole shape."""
+        trace's meta tensor gets an empty one of the whole shape, its
+        all_reduce counted and not run (``all_reduce_timed``)."""
         if local.device.type == "meta":
-            return local.new_empty(shape)
+            full = local.new_empty(shape)
+            all_reduce_timed(full, self.group, self.comm, "fsdp_gather")
+            return full
         full = local.new_zeros(shape)
         if dim is None:
             if owned:
@@ -236,7 +239,7 @@ class ShardedLayout:
         self.fsdp = model.fsdp
         self.mesh = self.tp.mesh
         self.rank = self.mesh.rank
-        self.data = self.mesh.shape.get("data", 1)
+        self.data = self.mesh.data_ranks
         self.data_group = self.mesh.data_group
         self.comm = self.tp.comm
         self.paths = {p for p, _ in flatten_with_paths(self.tp.specs)}
@@ -317,15 +320,17 @@ class ShardedLayout:
         sq = lambda t: torch.sum(torch.square(t.to(torch.float32)))
         parts, count = [], []
         for path, g in _sorted_items(grads):
-            first_data = self._data_split(path) or coords["data"] == 0
+            first_data = self._data_split(path) or self.mesh.data_index == 0
             shared = self.tp.grad_sums.get(path)
             if shared is not None:
-                shared = shared.to(g.device)
-                keep = torch.ones(g.shape[-1], dtype=torch.bool,
-                                  device=g.device)
+                # the other columns, as indices made on the host (a mask
+                # would index by nonzero, which a meta tensor cannot run)
+                keep = torch.ones(g.shape[-1], dtype=torch.bool)
                 keep[shared] = False
-                split, whole = sq(g[..., keep]), sq(g.index_select(-1,
-                                                                   shared))
+                rest = keep.nonzero()[:, 0].to(g.device)
+                shared = shared.to(g.device)
+                split, whole = (sq(g.index_select(-1, rest)),
+                                sq(g.index_select(-1, shared)))
                 parts += [split * first_data,
                           whole * (first_data and coords["model"] == 0)]
                 count.append(2)

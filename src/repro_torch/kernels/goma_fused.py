@@ -36,8 +36,8 @@ import torch
 from ..core.hopper_mapping import (CTA_TILE, SMEM_BYTES, FusedTilePlan,
                                    fused_smem_bytes)
 from . import _build
-from .goma_gemm import (DTYPE_CODES, check_cuda_operands, pad_k,
-                        refuse_grad, traced)
+from .goma_gemm import (DTYPE_CODES, check_cuda_operands, dtype_key,
+                        note_traced, pad_k, refuse_grad, traced)
 
 
 def _gelu_tanh(g: torch.Tensor) -> torch.Tensor:
@@ -79,6 +79,8 @@ def goma_combine(g: torch.Tensor, u: torch.Tensor,
     refuse_grad("goma_combine", g, u)
     if g.device.type != "cuda":
         if traced(g):
+            note_traced("goma_combine", shape=tuple(g.shape), flops={},
+                        nbytes=3 * g.numel() * g.element_size())
             return torch.empty_like(g)
         if g.device.type == "cpu":
             return goma_combine_plain(g, u, activation)
@@ -136,6 +138,12 @@ def goma_fused_matmul(a: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     refuse_grad("goma_fused_matmul", a, wg, wu, wd)
     if a.device.type != "cuda":
         if traced(a):
+            M, FF, K, N2 = plan.M, plan.FF, plan.K, plan.N2
+            note_traced("goma_fused_matmul", shape=(M, FF, K, N2),
+                        nbytes=(M * K + 2 * K * FF + FF * N2 + M * N2)
+                        * a.element_size(),
+                        flops={dtype_key(a.dtype):
+                               2 * M * K * FF * 2 + 2 * M * FF * N2})
             return a.new_empty((pm, pn2))
         if a.device.type == "cpu":
             return goma_fused_matmul_plain(a, wg, wu, wd, plan,

@@ -33,6 +33,7 @@ node (``capture.trace``).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -49,13 +50,53 @@ SLICE_WIDTHS = (128, 64, 32)
 SM_COUNT = 132
 
 
+# the kernel calls a program analysis (``launch.hlo_analysis``) sees on
+# meta tensors, while it collects them (``collect_traced``); None
+# otherwise
+traced_calls: list | None = None
+
+
 def traced(t: torch.Tensor) -> bool:
     """True for a fake tensor of a trace (``capture.trace`` traces on
-    fake tensors of the meta device).  The wrappers then launch nothing
-    and return an empty output of the kernel's shape.  Only the CPU and
-    CUDA checks run before it, so a real CUDA tensor never takes that
-    path, and a plain meta tensor is refused as any other device is."""
-    return isinstance(t, FakeTensor)
+    fake tensors of the meta device), and for a meta tensor while a
+    program analysis collects the kernel calls (``collect_traced``).  The
+    wrappers then launch nothing and return an empty output of the
+    kernel's shape.  Only the CPU and CUDA checks run before it, so a
+    real CUDA tensor never takes that path, and a plain meta tensor
+    outside an analysis is refused as any other device is."""
+    return isinstance(t, FakeTensor) or (
+        traced_calls is not None and t.device.type == "meta")
+
+
+@contextlib.contextmanager
+def collect_traced():
+    """Collect into the list it yields every kernel call that a trace
+    passes inside the block (``note_traced``)."""
+    global traced_calls
+    saved, traced_calls = traced_calls, []
+    try:
+        yield traced_calls
+    finally:
+        traced_calls = saved
+
+
+def note_traced(name: str, *, nbytes: int, flops: dict,
+                other_ops: int = 0, shape: tuple = ()) -> None:
+    """Record, for a program analysis, one kernel call that a trace passes
+    (on a trace's tensors the wrappers launch nothing, so the recorded
+    program holds only the kernel's empty output): the bytes its function
+    must move (each input read once, each output written once), its
+    products' flops by the unit's type (``{"bfloat16": ...}``), its other
+    operations and its shape."""
+    if traced_calls is not None:
+        traced_calls.append(dict(name=name, bytes=int(nbytes),
+                                 flops=dict(flops), other_ops=int(other_ops),
+                                 shape=tuple(int(x) for x in shape)))
+
+
+def dtype_key(dtype: torch.dtype) -> str:
+    """A dtype's name as the roofline's peaks are keyed (``bfloat16``)."""
+    return str(dtype).removeprefix("torch.")
 
 
 class NoBackwardError(RuntimeError):
@@ -173,6 +214,10 @@ def goma_matmul(a: torch.Tensor, b: torch.Tensor, plan: TpuTilePlan, *,
     refuse_grad("goma_matmul", a, b)
     if a.device.type != "cuda":
         if traced(a):
+            M, N, K = plan.M, plan.N, plan.K
+            note_traced("goma_matmul", shape=(M, N, K),
+                        nbytes=(M * K + K * N + M * N) * a.element_size(),
+                        flops={dtype_key(a.dtype): 2 * M * N * K})
             return a.new_empty((pm, pn))
         if a.device.type == "cpu":
             return goma_matmul_plain(a, b, plan)

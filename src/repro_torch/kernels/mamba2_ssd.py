@@ -31,8 +31,9 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .goma_gemm import (DTYPE_CODES, check_cuda_operands, refuse_grad,
-                        traced)
+from .goma_gemm import (DTYPE_CODES, check_cuda_operands, note_traced,
+                        refuse_grad, traced)
+from .wkv6 import BLK, SUB
 
 # the head (P) and state (N) sizes the kernel is built for, each one of
 # these: zamba2-2.7b's 64 x 64 and its smoke config's 16 x 16
@@ -51,6 +52,29 @@ def _check_shapes(xh, dt, a_log, Bm, Cm, chunk: int) -> None:
     if chunk <= 0 or S % chunk:
         raise ValueError(f"sequence {S} is not a multiple of the chunk "
                          f"{chunk}: pad it to the chunk size first")
+
+
+def ssd_work(B, S, H, P, N) -> tuple[int, int]:
+    """(product flops, other operations) of the SSD scan as the kernels do
+    it: C Bm^T once per (batch, sub-chunk); per sub-chunk and head y's
+    intra part (block rows of 16 and 32 keys), C S^T and the state update.
+    Other operations (an exp counts as one): the cumsum and its exps, the
+    decayed scores (sub, exp, multiply), xh dt, the suffix and exp(cum)
+    scalings, and the state's decay."""
+    subs = -(-S // SUB)
+    products = (B * subs * 2 * SUB * SUB * N
+                + B * H * subs * 2 * ((BLK * BLK + BLK * 2 * BLK) * P
+                                      + 2 * SUB * N * P))
+    other = B * H * subs * (SUB * 5 + SUB * (SUB + 1) // 2 * 3
+                            + SUB * P * 4 + 2 * P * N)
+    return products, other
+
+
+def ssd_bytes(B, S, H, P, N, itemsize: int) -> int:
+    """The bytes the scan's function moves: xh, dt, Bm, Cm read and y
+    written once, a_log, the final state."""
+    return ((2 * B * S * H * P + B * S * H + 2 * B * S * N) * itemsize
+            + H * 4 + B * H * P * N * 4)
 
 
 def ssd_scan_plain(xh, dt, a_log, Bm, Cm, *, chunk: int = 64,
@@ -102,6 +126,10 @@ def ssd_scan(xh, dt, a_log, Bm, Cm, *, chunk: int = 64):
     refuse_grad("ssd_scan", xh, dt, a_log, Bm, Cm)
     if xh.device.type != "cuda":
         if traced(xh):
+            products, other = ssd_work(B, S, H, P, N)
+            note_traced("ssd_scan", shape=(B, S, H, P, N, chunk),
+                        nbytes=ssd_bytes(B, S, H, P, N, xh.element_size()),
+                        flops={"tf32": products}, other_ops=other)
             return torch.empty_like(xh), xh.new_empty((B, H, P, N),
                                                       dtype=torch.float32)
         if xh.device.type == "cpu":

@@ -27,11 +27,13 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .goma_gemm import (DTYPE_CODES, check_cuda_operands, refuse_grad,
-                        traced)
+from .goma_gemm import (DTYPE_CODES, check_cuda_operands, note_traced,
+                        refuse_grad, traced)
 
 # the head size the kernel is built for: RWKV-6's, the only one it has
 HEAD = 64
+# the scan kernels' sub-chunk and B3's decay-factoring block (csrc/)
+SUB, BLK = 32, 16
 
 
 def _check_shapes(r, k, v, logw, u, chunk: int) -> None:
@@ -45,6 +47,29 @@ def _check_shapes(r, k, v, logw, u, chunk: int) -> None:
     if chunk <= 0 or S % chunk:
         raise ValueError(f"sequence {S} is not a multiple of the chunk "
                          f"{chunk}: pad it to the chunk size first")
+
+
+def wkv6_work(B, S, H, P) -> tuple[int, int]:
+    """(product flops, other operations) of the factored WKV6 scan, per
+    sub-chunk of SUB tokens and head.  Products: the scores below the
+    diagonal blocks (BLK x BLK x P), y's intra part (block rows of 16 and
+    32 keys) and r S, and the state update k^T v.  Other operations (an
+    exp counts as one): the diagonal blocks' exact terms (sub, exp, two
+    multiplies, an add) and bonus, the factors of the block below them,
+    the cumsum, the decay folds and the state's decay."""
+    products = 2 * (BLK * BLK * P + (BLK * BLK + BLK * 2 * BLK) * P
+                    + 2 * SUB * P * P)
+    pairs = 2 * BLK * (BLK - 1) // 2
+    other = (pairs * P * 5 + SUB * P * 3 + 2 * BLK * P * 3 + SUB * P
+             + SUB * P * 5 + P + 2 * P * P)
+    n = B * H * -(-S // SUB)
+    return n * products, n * other
+
+
+def wkv6_bytes(B, S, H, P, itemsize: int) -> int:
+    """The bytes the scan's function moves: r, k, v, logw read and y
+    written once, u, the final state."""
+    return 5 * B * S * H * P * itemsize + H * P * 4 + B * H * P * P * 4
 
 
 def wkv6_scan_plain(r, k, v, logw, u, *, chunk: int = 64,
@@ -99,6 +124,10 @@ def wkv6_scan(r, k, v, logw, u, *, chunk: int = 64):
     refuse_grad("wkv6_scan", r, k, v, logw, u)
     if r.device.type != "cuda":
         if traced(r):
+            products, other = wkv6_work(B, S, H, P)
+            note_traced("wkv6_scan", shape=(B, S, H, P, chunk),
+                        nbytes=wkv6_bytes(B, S, H, P, r.element_size()),
+                        flops={"tf32": products}, other_ops=other)
             return torch.empty_like(r), r.new_empty((B, H, P, P),
                                                     dtype=torch.float32)
         if r.device.type == "cpu":

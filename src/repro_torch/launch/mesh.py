@@ -32,6 +32,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.parallel import all_reduce_timed
+from ..sharding.rules import DP
 
 BACKENDS = ("gloo", "nccl")
 
@@ -47,7 +48,7 @@ class _DataMean(torch.autograd.Function):
     def forward(ctx, x, mesh, comm):
         y = x.clone(memory_format=torch.contiguous_format)
         all_reduce_timed(y, mesh.data_group, comm, "data_stats")
-        return y / mesh.shape["data"]
+        return y / mesh.data_ranks
 
     @staticmethod
     def backward(ctx, g):
@@ -69,6 +70,25 @@ class HostMesh:
     data_group: object = dataclasses.field(default=None, repr=False)
 
     @property
+    def data_ranks(self) -> int:
+        """The ranks of the data axes (the rules' ``DP``: "pod" and
+        "data"), which FSDP splits over and the data mean averages over."""
+        return math.prod(self.shape.get(a, 1) for a in DP)
+
+    @property
+    def data_index(self) -> int:
+        """This rank's index over the data axes (the first the most
+        significant, as the rules lay blocks out); 0 without
+        coordinates."""
+        if self.coords is None:
+            return 0
+        i = 0
+        for a in DP:
+            if a in self.shape:
+                i = i * self.shape[a] + self.coords[a]
+        return i
+
+    @property
     def devices(self) -> np.ndarray:
         """The ranks laid out on the mesh (a jax Mesh's device array)."""
         return np.arange(math.prod(self.shape.values())).reshape(
@@ -77,15 +97,27 @@ class HostMesh:
     def data_mean(self, x: torch.Tensor, comm=None) -> torch.Tensor:
         """The mean of ``x`` over the data ranks (``x`` itself on a mesh
         with one), differentiable (``_DataMean``; ``comm`` counts the
-        all_reduce): the MoE loss's token statistics over a sharded
-        loss's global batch."""
-        if self.shape.get("data", 1) == 1 or x.device.type == "meta":
+        all_reduce, which a trace's meta tensor records without running):
+        the MoE loss's token statistics over a sharded loss's global
+        batch."""
+        if self.data_ranks == 1:
             return x
         return _DataMean.apply(x, self, comm)
 
     def barrier(self) -> None:
         """Wait for every rank of the world."""
         dist.barrier()
+
+
+def group_mesh(group=None) -> HostMesh:
+    """A replicated data-parallel ``group`` (the default group when None)
+    as a mesh whose data axis is the group's ranks and whose model axis
+    is 1: ``data_mean`` then averages over the group."""
+    n = dist.get_world_size(group)
+    return HostMesh(shape={"data": n, "model": 1},
+                    axis_names=("data", "model"), rank=dist.get_rank(),
+                    coords={"data": dist.get_rank(group), "model": 0},
+                    data_group=group)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> HostMesh:

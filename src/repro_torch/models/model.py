@@ -44,7 +44,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..configs.base import ArchConfig
+from ..configs.base import SHAPES, ArchConfig, ShapeSpec
 from ..sharding.rules import map_with_paths
 from . import layers as L
 from . import moe as MOE
@@ -366,7 +366,7 @@ class Model:
 
     def _attn_block(self, lp, x, positions, *, block="layers", layer=None,
                     window_flag=None, cache=None, cache_index=None,
-                    remat=False, aux_over_data=False):
+                    remat=False, data_mean=None):
         """Pre-norm attention and gated MLP (or mixture of experts) with
         residuals: a dense, VLM or MoE layer, or the hybrid's shared
         block (``block`` is the path of its parameters).  The config's
@@ -396,7 +396,7 @@ class Model:
             y = L.apply_norm(lp["ln2"], x, cfg.norm)
             if "moe" in lp:
                 h, aux = MOE.moe_apply(lp["moe"], cfg, y, tp=self.tp,
-                                       aux_over_data=aux_over_data)
+                                       data_mean=data_mean)
             else:
                 h, aux = self._reduce(L.mlp_apply(
                     lp["mlp"], self._enter(y, f"{block}/mlp/wd/w"),
@@ -405,7 +405,7 @@ class Model:
         return (self._ckpt(body) if remat else body)(lp, x)
 
     def _forward_stack(self, params, x, positions, *, caches=None,
-                       cache_index=None, remat=False, aux_over_data=False):
+                       cache_index=None, remat=False, data_mean=None):
         """Run the layers in order.  caches: the model's layer caches
         (``init_cache(...)["layers"]``), updated in place, or None.  With
         ``cache_index`` None (a prefill) the recurrent layers start from
@@ -415,8 +415,8 @@ class Model:
         Returns (x, aux): the sum of the MoE layers' load-balancing
         losses (0 for the other families), as the reference's scan sums
         them.  ``remat`` rematerializes each layer body;
-        ``aux_over_data`` takes the MoE loss over the mesh's global
-        batch (a training loss)."""
+        ``data_mean`` (the mean over the data ranks) takes the MoE loss
+        over the global batch (a training loss on data ranks)."""
         cfg = self.cfg
         fam = cfg.family
         aux = x.new_zeros((), dtype=torch.float32)
@@ -429,7 +429,7 @@ class Model:
                 x, a = self._attn_block(
                     lp, x, positions, layer=i,
                     window_flag=wf, cache=cache, cache_index=cache_index,
-                    remat=remat, aux_over_data=aux_over_data)
+                    remat=remat, data_mean=data_mean)
                 if a is not None:
                     aux = aux + a
             return x, aux
@@ -582,7 +582,7 @@ class Model:
         return x
 
     # -------------------------------------------------------- training
-    def loss(self, params, batch, *, remat: bool = True):
+    def loss(self, params, batch, *, remat: bool = True, data_mean=None):
         """The reference's training loss: mean next-token NLL over the
         labels >= 0 (-1 masks a position), from an fp32 log_softmax over
         the padded vocabulary (pad rows masked by ``_lm_logits``), plus
@@ -592,7 +592,11 @@ class Model:
         frontends' families.  ``remat`` rematerializes every layer body
         (``_ckpt``).  Returns a 0-d fp32 tensor.  On a mesh each data
         rank's loss is over its rows (the train step averages them), the
-        MoE load-balancing loss over the global batch."""
+        MoE load-balancing loss over the global batch: ``data_mean`` is
+        the differentiable mean over the data ranks
+        (``launch.mesh.HostMesh.data_mean``; the replicated train step's
+        over its group), by default the mesh's data axis on a sharded
+        model, and none on one rank."""
         cfg = self.cfg
         tokens, labels = batch["tokens"], batch["labels"]
         cdt = L.dtype_of(cfg.compute_dtype)
@@ -607,8 +611,11 @@ class Model:
             prefix = batch.get("patches") if cfg.family == "vlm" else None
             x = self._embed_in(params, tokens, prefix)
             pos = torch.arange(x.shape[1], device=tokens.device)
+            if data_mean is None and self.tp is not None:
+                data_mean = functools.partial(self.tp.mesh.data_mean,
+                                              comm=self.tp.comm)
             x, aux = self._forward_stack(params, x, pos, remat=remat,
-                                         aux_over_data=self.tp is not None)
+                                         data_mean=data_mean)
             if prefix is not None:
                 x = x[:, prefix.shape[1]:]
         logits = self._lm_logits(params, x)
@@ -733,6 +740,43 @@ class Model:
         if cfg.family == "hybrid":
             out["attn"] = kv(groups, "shared_block")
         return {"layers": out}
+
+    def input_specs(self, shape: ShapeSpec | str) -> dict:
+        """Meta-tensor stand-ins for every model input (the dry-run), of
+        the reference's shapes and dtypes: a train or prefill batch, or a
+        decode step's one new token, its write position and a cache of
+        ``seq_len`` positions (this rank's heads on a tensor-parallel
+        model)."""
+        cfg = self.cfg
+        if isinstance(shape, str):
+            shape = SHAPES[shape]
+        B, S = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+        cdt = L.dtype_of(cfg.compute_dtype)
+
+        def sds(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        def frontend(out):
+            if cfg.family == "encdec":
+                out["frames"] = sds((B, cfg.frontend_len or S, cfg.d_model),
+                                    cdt)
+            if cfg.family == "vlm":
+                out["patches"] = sds((B, cfg.frontend_len, cfg.d_model), cdt)
+            return out
+
+        if shape.kind == "train":
+            return frontend({"tokens": sds((B, S), i32),
+                             "labels": sds((B, S), i32)})
+        if shape.kind == "prefill":
+            return frontend({"tokens": sds((B, S), i32)})
+        # decode: one new token against a cache of size S
+        out = {"tokens": sds((B, 1), i32), "index": sds((), i32),
+               "cache": self.init_cache(B, S, device="meta")}
+        if cfg.family == "encdec":
+            out["cache"]["enc_out"] = sds(
+                (B, cfg.frontend_len or S, cfg.d_model), cdt)
+        return out
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -86,18 +86,18 @@ def _route(p: Params, cfg, xf: torch.Tensor):
 
 
 def _aux_loss(probs: torch.Tensor, top_i: torch.Tensor, E: int,
-              k: int, tp=None) -> torch.Tensor:
+              k: int, data_mean=None) -> torch.Tensor:
     """Switch load balancing: E * sum_e f_e * P_e / k, with f_e the share
     of tokens routing to expert e and P_e its mean probability; with
-    ``tp`` (a loss on a mesh with data ranks) both means are over the
-    global batch, the data ranks' means averaged
-    (``launch.mesh.HostMesh.data_mean``), as the reference's loss takes
-    them over its sharded batch."""
+    ``data_mean`` (a training loss on data ranks: the differentiable mean
+    over them, ``launch.mesh.HostMesh.data_mean``) both means are over
+    the global batch, the data ranks' means averaged, as the reference's
+    loss takes them over its sharded batch."""
     tokens = probs.reshape(-1, E)
     picked = F.one_hot(top_i.reshape(-1, k), E).sum(1).to(_F32)
     f, P = picked.mean(0), tokens.mean(0)
-    if tp is not None:
-        f, P = tp.mesh.data_mean(torch.cat([f, P]), tp.comm).split(E)
+    if data_mean is not None:
+        f, P = data_mean(torch.cat([f, P])).split(E)
     return E * torch.sum(f * P) / k
 
 
@@ -127,13 +127,13 @@ def _combine_shared(p: Params, cfg, xf, y, tp):
 
 
 def moe_apply(p: Params, cfg, x: torch.Tensor, *, tp=None,
-              aux_over_data: bool = False):
+              data_mean=None):
     """x: (B, S, d).  Returns (y in x's dtype, aux loss); the dispatch per
-    ``cfg.moe_dispatch``.  ``aux_over_data``: the aux loss over the
-    global batch of ``tp``'s mesh (a training loss)."""
+    ``cfg.moe_dispatch``.  ``data_mean``: the mean over the data ranks
+    that takes the aux loss over the global batch (a training loss on
+    data ranks; ``_aux_loss``)."""
     if getattr(cfg, "moe_dispatch", "dense") == "gathered":
-        return moe_apply_gathered(p, cfg, x, tp=tp,
-                                  aux_over_data=aux_over_data)
+        return moe_apply_gathered(p, cfg, x, tp=tp, data_mean=data_mean)
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     xf = x.reshape(B * S, d).to(_F32)
@@ -152,13 +152,13 @@ def moe_apply(p: Params, cfg, x: torch.Tensor, *, tp=None,
     wd = p["wd"].to(_F32)
     y = h.permute(1, 0, 2).reshape(B * S, -1) @ wd.reshape(-1, d)
     y = _combine_shared(p, cfg, xf, y, tp)
-    aux = _aux_loss(probs, top_i, E, k, tp if aux_over_data else None)
+    aux = _aux_loss(probs, top_i, E, k, data_mean)
     return y.reshape(B, S, d).to(x.dtype), aux
 
 
 def moe_apply_gathered(p: Params, cfg, x: torch.Tensor, *,
                        capacity_factor: float = 1.25, tp=None,
-                       aux_over_data: bool = False):
+                       data_mean=None):
     """Sort-based capacity-bucketed dispatch: each expert processes at most
     C = capacity_factor * T * k / E of its routed tokens, in the order of
     a stable sort on expert ids; the rest drop.  A trash row absorbs the
@@ -199,5 +199,5 @@ def moe_apply_gathered(p: Params, cfg, x: torch.Tensor, *,
                     "layers/moe/wd")
     contrib = ye[torch.clamp(slot, max=E * C - 1)] * weight[:, None]
     y = _combine_shared(p, cfg, xf, contrib.reshape(T, k, d).sum(1), tp)
-    aux = _aux_loss(probs, top_i, E, k, tp if aux_over_data else None)
+    aux = _aux_loss(probs, top_i, E, k, data_mean)
     return y.reshape(B, S, d).to(x.dtype), aux

@@ -94,14 +94,19 @@ def all_reduce_timed(t: torch.Tensor, group, comm: dict | None,
                      kind: str) -> None:
     """``dist.all_reduce(t)`` over ``group``, in place, counted in
     ``comm[kind]``: calls, bytes and the host seconds inside the call
-    (waits for queued device work and for the other ranks included)."""
+    (waits for queued device work and for the other ranks included).  A
+    trace's meta tensor has no values to sum: its call is counted (no
+    seconds) and not run, so that a program analysis sees the
+    collectives a run makes (``launch.roofline``)."""
+    meta = t.device.type == "meta"
     t0 = time.perf_counter()
-    dist.all_reduce(t, group=group)
+    if not meta:
+        dist.all_reduce(t, group=group)
     if comm is not None:
         row = comm.setdefault(kind, {"calls": 0, "bytes": 0, "seconds": 0.0})
         row["calls"] += 1
         row["bytes"] += t.numel() * t.element_size()
-        row["seconds"] += time.perf_counter() - t0
+        row["seconds"] += 0.0 if meta else time.perf_counter() - t0
 
 
 class _SumOverModel(torch.autograd.Function):
@@ -338,11 +343,11 @@ class TensorParallel:
                    kind: str = "tp_sum") -> torch.Tensor:
         """Sum ``x`` over the model axis: in place, or, where ``x``
         needs a gradient, into a copy whose gradient passes back
-        unchanged; a trace's meta tensor (capture) passes through, since
-        it has no values to sum."""
-        if x.device.type == "meta":
-            return x
-        self.all_reduces += 1
+        unchanged.  On a trace's meta tensor (a capture, a program
+        analysis) the call is counted in ``comm`` and not run
+        (``all_reduce_timed``); ``all_reduces`` counts the calls that
+        ran."""
+        self.all_reduces += x.device.type != "meta"
         if torch.is_grad_enabled() and x.requires_grad:
             return _SumOverModel.apply(x, self, kind)
         x = x.contiguous()
@@ -376,7 +381,7 @@ class TensorParallel:
         """The ranks' column blocks (the vocab-parallel logits) gathered
         into ``width`` columns on every rank, exactly."""
         if torch.is_grad_enabled() and local.requires_grad:
-            self.all_reduces += 1
+            self.all_reduces += local.device.type != "meta"
             return _GatherColumns.apply(local, self, width)
         return self.all_reduce(self.columns_in_zeros(local, width)[0],
                                "logits_gather")

@@ -26,7 +26,13 @@ def _world(group) -> int:
 
 
 def _all_reduce(t: torch.Tensor, op, group, stats) -> None:
-    """In place; counted in ``stats`` (calls, bytes, seconds inside)."""
+    """In place; counted in ``stats`` (calls, bytes, seconds inside).  A
+    trace's meta tensor is counted (no seconds) and not run."""
+    if t.device.type == "meta":
+        if stats is not None:
+            stats["calls"] += 1
+            stats["bytes"] += t.numel() * t.element_size()
+        return
     if not dist.is_initialized():
         return
     t0 = time.perf_counter()

@@ -22,6 +22,7 @@ import torch
 import torch.distributed as dist
 
 from ..dist.fsdp import ShardedLayout
+from ..launch.mesh import group_mesh
 from ..models.model import Model
 from . import optimizer as opt
 from .grad_compression import (comm_stats, exact_mean, init_error_buffers,
@@ -29,17 +30,18 @@ from .grad_compression import (comm_stats, exact_mean, init_error_buffers,
 
 
 def _grads_of(model: Model, params, batch, *, microbatches: int,
-              remat: bool):
+              remat: bool, data_mean=None):
     """(loss, grads): the mean over ``microbatches`` equal splits of the
     batch's rows, each a backward of its own (peak activations of one
     microbatch).  Every leaf gets a gradient (zeros where the loss does
-    not reach it, as jax.grad gives)."""
+    not reach it, as jax.grad gives).  ``data_mean``: the mean over the
+    data ranks that ``Model.loss`` takes the MoE statistics through."""
     leaves = opt.tree_leaves(params)
     live = opt.tree_map(lambda p: p.detach().requires_grad_(), params)
     live_leaves = opt.tree_leaves(live)
 
     def one(mbatch):
-        loss = model.loss(live, mbatch, remat=remat)
+        loss = model.loss(live, mbatch, remat=remat, data_mean=data_mean)
         grads = torch.autograd.grad(loss, live_leaves, allow_unused=True)
         return loss.detach(), [torch.zeros_like(p) if g is None else g
                                for p, g in zip(leaves, grads)]
@@ -100,8 +102,11 @@ def jit_train_step(model: Model, cfg_opt: opt.AdamWConfig, group=None, *,
     fp32 mean, or with ``compress`` by the int8 error-feedback
     all-reduce, whose error buffers the step keeps from one call to the
     next (``step.errors``; they are not checkpointed).  The loss in the
-    metrics is the mean over the ranks.  ``step.comm`` counts the last
-    step's all_reduces: calls, bytes and host seconds inside them.
+    metrics is the mean over the ranks, and the MoE load-balancing loss
+    takes its token statistics over the group's global batch
+    (``launch.mesh.group_mesh``'s ``data_mean``), as the sharded step
+    does over its data axis.  ``step.comm`` counts the last step's
+    gradient all_reduces: calls, bytes and host seconds inside them.
 
     A sharded model (``model.tp`` set) trains on its ``mesh``: each rank
     takes its data coordinate's rows and holds its slices of the
@@ -112,10 +117,12 @@ def jit_train_step(model: Model, cfg_opt: opt.AdamWConfig, group=None, *,
         return _sharded_step(model, cfg_opt, mesh, group, compress,
                              microbatches=microbatches, remat=remat)
     data_parallel = group is not None or dist.is_initialized()
+    data_mean = group_mesh(group).data_mean if data_parallel else None
 
     def step(params, opt_state, batch):
         loss, grads = _grads_of(model, params, batch,
-                                microbatches=microbatches, remat=remat)
+                                microbatches=microbatches, remat=remat,
+                                data_mean=data_mean)
         step.comm = comm_stats()
         if data_parallel:
             if compress:

@@ -16,6 +16,13 @@ replicated data parallelism, one rank and the JAX engine, on the CPU.
   order) and as one rank on the whole batch does; ``shard_engine(mode=
   "fsdp")`` at (2, 1) and (2, 2) gives one rank's greedy tokens and the
   JAX engine's, on every smoke config.
+- ROADMAP C20: replicated data parallelism through
+  ``jit_train_step(group=)`` on the MoE smoke configs (deepseek-moe-16b,
+  granite-moe-1b-a400m) at world 2 and 4, by the exact mean and the
+  int8 error-feedback all-reduce, takes the load-balancing loss's token
+  statistics over the global batch: the losses and the exactly reduced
+  first gradients are within 1e-6 of one rank's on the whole batch, the
+  compressed ones within half a quantization step of them.
 """
 import dataclasses
 
@@ -56,6 +63,11 @@ ONE_TOL = 1e-5
 WIDE = {"d_ff": 1024, "vocab": 1024}
 CONFIGS = {"llama3-8b-wide": WIDE, "llama3-8b": {}}
 NEW, CACHE, PROMPT = 5, 32, 12
+# C20: replicated data parallelism on the MoE smoke configs, each reduction
+MOE_REPLICAS = [(a, c) for a in ("deepseek-moe-16b", "granite-moe-1b-a400m")
+                for c in (False, True)]
+# its losses and exactly reduced gradients against one rank's
+MOE_TOL = 1e-6
 
 
 def _mesh(data: int, model: int, rank: int = 0) -> HostMesh:
@@ -168,7 +180,8 @@ def _job(kind: str, name: str, mesh, **kw) -> dict:
 def worlds(served, tmp_path_factory):
     """Per world (2: mesh (2, 1); 4: (4, 1) and (2, 2)): the gather probe,
     FSDP and replicated training of each of CONFIGS, and shard_engine's
-    tokens on every smoke config; job by job, each the ranks' results."""
+    tokens on every smoke config, and the MoE replicas of C20; job by
+    job, each the ranks' results."""
     roots = {}
     for world in (2, 4):
         jobs = [_job("gather", "llama3-8b-wide", (world, 1))]
@@ -182,6 +195,9 @@ def worlds(served, tmp_path_factory):
                       prompts=served[a]["prompts"],
                       extra=served[a]["extra"], new=NEW, cache=CACHE)
                  for a in SERVED]
+        jobs += [dict(kind="replica_grads", arch=arch, compress=compress,
+                      seq=SEQ, batch=BATCH, lr=LR, steps=1)
+                 for arch, compress in MOE_REPLICAS]
         roots[world] = tmp_path_factory.mktemp(f"fsdp{world}")
         torch.save(jobs, roots[world] / "jobs.pt")
     return {world: [list(r) for r in zip(*ranks)]
@@ -304,3 +320,51 @@ def test_shard_engine_fsdp_tokens(worlds, served, world, arch):
     for got in worlds[world][1 + 2 * len(CONFIGS) + SERVED.index(arch)]:
         assert np.array_equal(got["tokens"], run["tokens"])
         assert (got["gathers"] > 0) == split, got["gathers"]
+
+
+@pytest.fixture(scope="module")
+def moe_one_rank():
+    """Per MoE smoke config: one rank's loss and gradients on the whole
+    batch of the replicas' first step."""
+    from repro_torch.training.train_step import _grads_of
+    out = {}
+    for arch in {a for a, _ in MOE_REPLICAS}:
+        cfg = get_config(arch, smoke=True)
+        model = build_model(cfg)
+        params = model.init_params(torch.Generator().manual_seed(0), "cpu",
+                                   masters=True)
+        batch, = job_batches(cfg, {"seq": SEQ, "batch": BATCH, "steps": 1},
+                             0, 1)
+        loss, grads = _grads_of(model, params, batch, microbatches=1,
+                                remat=True)
+        out[arch] = float(loss), dict(flatten_with_paths(grads))
+    return out
+
+
+MOE_CASES = [(w, a, c) for w in (2, 4) for a, c in MOE_REPLICAS]
+
+
+@pytest.mark.parametrize("world,arch,compress", MOE_CASES,
+                         ids=[f"{w}-{a}-{'compressed' if c else 'exact'}"
+                              for w, a, c in MOE_CASES])
+def test_replicated_moe_aux_loss_is_over_the_global_batch(
+        worlds, moe_one_rank, world, arch, compress):
+    """ROADMAP C20: each rank's loss (the load-balancing term's token
+    statistics averaged over the group) is one rank's on the whole
+    batch within 1e-6 of max(1, |loss|); the exactly reduced first
+    gradients are one rank's within 1e-6 of max(1, max|g|), and the
+    compressed ones within half the int8 step (the largest local
+    gradient over 127) of them."""
+    loss, want = moe_one_rank[arch]
+    i = (1 + 2 * len(CONFIGS) + len(SERVED)
+         + MOE_REPLICAS.index((arch, compress)))
+    ranks = worlds[world][i]
+    for got in ranks:
+        assert abs(got["losses"][0] - loss) <= MOE_TOL * max(1.0, abs(loss))
+        for path, g in want.items():
+            tol = MOE_TOL * max(1.0, float(g.abs().max()))
+            if compress:
+                tol += max(float(r["local"][path].abs().max())
+                           for r in ranks) / 127 / 2
+            gap = float((got["reduced"][path] - g).abs().max())
+            assert gap <= tol, (path, gap, tol)

@@ -37,7 +37,9 @@ def test_modules_found():
               "dist.serve_smoke", "models.parallel", "data", "data.pipeline",
               "checkpoint", "checkpoint.ckpt", "training",
               "training.optimizer", "training.train_step", "training.loop",
-              "training.grad_compression", "launch.train"):
+              "training.grad_compression", "launch.train",
+              "core.mappers", "core.codesign", "core.sim_oracle",
+              "launch.hlo_analysis", "launch.roofline", "launch.dryrun"):
         assert f"repro_torch.{m}" in MODULES
     assert len(MODULES) >= 30
 
@@ -178,7 +180,12 @@ COPIED = ["faults.py", "configs/__init__.py", "configs/base.py",
                                           / "configs").glob("*_*.py")),
           *(f"core/{m}.py" for m in ("geometry", "hardware", "energy",
                                      "certificate", "edp", "timeloop_ref",
-                                     "pareto", "solver", "fusion")),
+                                     "pareto", "solver", "fusion",
+                                     "sim_oracle", "codesign")),
+          *(f"core/mappers/{m}.py" for m in ("__init__", "base",
+                                             "cosa_like", "factorflow",
+                                             "goma", "loma",
+                                             "random_search", "salsa")),
           "core/dist_mapping.py", "core/workloads.py",
           "dist/__init__.py", "dist/mesh_solve.py",
           "planner/manifest.py", "planner/store.py",

@@ -156,6 +156,10 @@ def sharded_job(rank: int, job: dict) -> dict:
             params, state, m = step(params, state, b)
             losses.append(float(m["loss"]))
         return {"losses": losses, "whole": dict(flatten_with_paths(params))}
+    if kind == "program":
+        return program_run(job)
+    if kind == "replica_grads":
+        return replica_grads(rank, job, ocfg)
     if kind == "serve":
         from repro_torch.configs import get_config
         from repro_torch.dist.serve import shard_engine
@@ -218,6 +222,77 @@ def sharded_job(rank: int, job: dict) -> dict:
             "local": tree_to(dict(flatten_with_paths(params)), "cpu"),
             "coords": dict(mesh.coords), "comm": step.comm,
             "dims": {} if model.fsdp is None else model.fsdp.dims}
+
+
+def program_run(job: dict) -> dict:
+    """The dry-run's program of a cell (``launch.dryrun.cell_program``)
+    run for real on this rank of the job's mesh, on zeros of its
+    arguments' shapes and dtypes: the collectives it made by kind (calls
+    and bytes) and its argument bytes."""
+    import torch.utils._pytree as pytree
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.dryrun import cell_program
+    cfg, mesh, model = _sharded_model(job)
+    shape = ShapeSpec(job["shape"], job["seq"], job["batch"], job["shape"])
+    fn, args, comm = cell_program(model, cfg, shape)
+    real = pytree.tree_map(
+        lambda t: torch.zeros(t.shape, dtype=t.dtype)
+        if isinstance(t, torch.Tensor) else t, args)
+    fn(*real)
+    leaves = {id(t): t for t in pytree.tree_leaves(real)
+              if isinstance(t, torch.Tensor)}
+    return {"comm": {k: {"calls": v["calls"], "bytes": v["bytes"]}
+                     for k, v in comm().items() if v["calls"]},
+            "argument_bytes": sum(t.numel() * t.element_size()
+                                  for t in leaves.values())}
+
+
+def replica_grads(rank: int, job: dict, ocfg) -> dict:
+    """Replicated data parallelism through ``jit_train_step(group=)``, by
+    the exact mean or (``job["compress"]``) the int8 error-feedback
+    all-reduce: each step's loss, and the first step's local gradients
+    (``_grads_of``, before the reduction) and reduced gradients (what
+    the update takes)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.sharding.rules import flatten_with_paths
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+    cfg = dataclasses.replace(get_config(job["arch"], smoke=True),
+                              **job.get("overrides", {}))
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0), "cpu",
+                               masters=True)
+    state = opt.init_state(params)
+    step = ts.jit_train_step(model, ocfg, group=torch.distributed.group.WORLD,
+                             compress=job["compress"])
+    seen = {}
+    grads_of, apply = ts._grads_of, opt.apply_updates
+
+    def snap(key, grads):
+        if key not in seen:
+            seen[key] = {p: g.detach().clone()
+                         for p, g in flatten_with_paths(grads)}
+
+    def local(*args, **kw):
+        loss, grads = grads_of(*args, **kw)
+        snap("local", grads)
+        return loss, grads
+
+    def reduced(params, grads, *args, **kw):
+        snap("reduced", grads)
+        return apply(params, grads, *args, **kw)
+    ts._grads_of, opt.apply_updates = local, reduced
+    try:
+        losses = []
+        world = torch.distributed.get_world_size()
+        for b in job_batches(cfg, job, rank, world):
+            params, state, m = step(params, state, b)
+            losses.append(float(m["loss"]))
+    finally:
+        ts._grads_of, opt.apply_updates = grads_of, apply
+    return {"losses": losses, **seen}
 
 
 def gather_probe(model, params, rank: int, device) -> dict:
