@@ -1,11 +1,11 @@
-"""Observability for the port: the counter registry and span tracer,
-copied verbatim from the reference package."""
+"""Observability for the port: the counter registry and the span tracer,
+whose spans share a clock with the device trace (``tracing.py``)."""
 from .registry import Registry, get_registry, inc, set_gauge
-from .tracing import (NULL_SPAN, Span, Tracer, get_tracer, set_tracer,
-                      span, trace_event)
+from .tracing import (NULL_SPAN, Span, Tracer, anchors, get_tracer,
+                      set_tracer, span, to_trace_us, trace_event)
 
 __all__ = [
-    "NULL_SPAN", "Registry", "Span", "Tracer", "get_registry",
+    "NULL_SPAN", "Registry", "Span", "Tracer", "anchors", "get_registry",
     "get_tracer", "inc", "set_gauge", "set_tracer", "span",
-    "trace_event",
+    "to_trace_us", "trace_event",
 ]

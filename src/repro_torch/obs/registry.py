@@ -26,15 +26,16 @@ Conventions used across the repo:
   plan_store.{hits,misses,puts}   content-addressed store traffic
   planner.batches                 ``BatchPlanner.plan_gemms`` builds
   capture.{traces,plans}          jaxpr capture / program planning
-  kernel.{gemm,fused_mlp}.dispatch   Python-level kernel dispatches
-                                     (trace-time under jit)
+  kernel.{gemm,fused_mlp}.dispatch   calls of ``kernels.ops.gemm`` /
+                                     ``fused_mlp`` (a captured trace
+                                     counts its calls too)
   sched.*                         scheduler ticks / chunks / tokens
   sched.spec.{rounds,drafted,accepted}   scheduler-side speculative
                                   verify rounds and acceptance tallies
   sched.prefix_tokens_reused      prompt tokens grafted from the KV
                                   prefix cache instead of prefilled
 
-Scale-out namespaces (see ``repro.serving.router`` and DESIGN.md
+Scale-out namespaces (see ``repro_torch.serving.router`` and DESIGN.md
 §Scale-out):
 
   router.{routed,failovers}       admissions routed / requests failed
@@ -49,7 +50,8 @@ Scale-out namespaces (see ``repro.serving.router`` and DESIGN.md
                                   decoding (spec.draft_steps = draft-
                                   model forward steps)
 
-Resilience namespaces (see ``repro.faults`` and DESIGN.md §Resilience):
+Resilience namespaces (see ``repro_torch.faults`` and DESIGN.md
+§Resilience):
 
   faults.injected.<site>          deterministic fault injections fired
   errors.*                        genuine faults observed (injected or

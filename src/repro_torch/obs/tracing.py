@@ -21,25 +21,40 @@ Two usage shapes:
     ``tracer.end(sp)``; point-in-time marks (first token) attach via
     ``tracer.event("first_token", parent=sp)`` as zero-length children.
 
+The stack is shared by the threads that open spans: a span opened on
+another thread while the caller waits (autograd's device thread running
+a rematerialized layer inside the training step's backward) parents
+under the caller's open span.
+
 When no tracer is installed (the default), ``span()`` returns a shared
 no-op context manager and ``trace_event`` returns ``None`` — the cost
-at every instrumented site is one global read and a dict pack, which is
-what keeps the serving overhead gate (benchmarks/bench_obs.py) under
-5%.
+at every instrumented site is one global read and a dict pack.
+
+**One clock with the device trace.**  A tracer on the default clock
+(``time.perf_counter``) records *anchors*: zero-length ``obs.clock``
+events whose ``epoch_ns`` attribute is ``time.time_ns()`` read beside
+the span clock (the tightest of a few back-to-back pairs).  It anchors
+when it is made and when ``set_tracer`` uninstalls it, so its spans lie
+between two anchors.  ``to_trace_us`` maps a span time onto the
+microseconds of a ``torch.profiler`` chrome trace, whose ``ts`` counts
+from its ``baseTimeNanoseconds`` on the Unix epoch, interpolating
+between the nearest anchors.  A tracer on an injected clock has no
+anchors, and the conversion raises.
 
 JSONL schema, one object per span, ordered by ``sid``::
 
     {"sid": 3, "parent": 1, "name": "solver.solve",
      "t0": 0.013, "t1": 0.192, "attrs": {"dims": [256, 256, 64]}}
 
-``Tracer.to_jsonl`` / ``Tracer.from_jsonl`` round-trip exactly (tested
-in tests/test_obs.py).
+``Tracer.to_jsonl`` / ``Tracer.from_jsonl`` round-trip exactly, the
+anchors with the rest (tested in tests/test_torch_obs.py).
 """
 from __future__ import annotations
 
 import dataclasses
 import io
 import json
+import threading
 import time
 from contextlib import contextmanager
 from typing import Any, Callable, Iterator, Optional
@@ -90,15 +105,28 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
+CLOCK = "obs.clock"          # the name of an anchor event
+ANCHOR_READS = 8             # back-to-back clock pairs an anchor picks from
+
+
 class Tracer:
-    """Collects spans; single-threaded by design (one tracer per loop,
-    matching the scheduler / benchmark harnesses that drive it)."""
+    """Collects spans from one loop; the threads that take part in it
+    share its stack (see the module's docstring)."""
 
     def __init__(self, clock: Callable[[], float] | None = None):
         self.clock = clock if clock is not None else time.perf_counter
         self.spans: list[Span] = []
         self._stack: list[int] = []
         self._next_sid = 0
+        self._lock = threading.Lock()
+        if self.on_epoch_clock:
+            self.anchor()
+
+    @property
+    def on_epoch_clock(self) -> bool:
+        """Whether spans are timed on ``time.perf_counter``, the clock
+        that anchors pair with the epoch."""
+        return self.clock is time.perf_counter
 
     # ------------------------------------------------------------ spans
     def start(self, name: str, *, detached: bool = False,
@@ -106,24 +134,26 @@ class Tracer:
         """Open a span.  Stacked spans parent under the innermost open
         span; detached spans record the current parent but do not join
         the stack (they may outlive it)."""
-        if parent is not None:
-            pid: Optional[int] = parent.sid
-        else:
-            pid = self._stack[-1] if self._stack else None
-        sp = Span(sid=self._next_sid, name=name, t0=self.clock(),
-                  parent=pid, attrs=dict(attrs))
-        self._next_sid += 1
-        self.spans.append(sp)
-        if not detached:
-            self._stack.append(sp.sid)
+        with self._lock:
+            if parent is not None:
+                pid: Optional[int] = parent.sid
+            else:
+                pid = self._stack[-1] if self._stack else None
+            sp = Span(sid=self._next_sid, name=name, t0=self.clock(),
+                      parent=pid, attrs=dict(attrs))
+            self._next_sid += 1
+            self.spans.append(sp)
+            if not detached:
+                self._stack.append(sp.sid)
         return sp
 
     def end(self, sp: Span, **attrs: Any) -> Span:
         sp.t1 = self.clock()
         if attrs:
             sp.attrs.update(attrs)
-        if self._stack and self._stack[-1] == sp.sid:
-            self._stack.pop()
+        with self._lock:
+            if sp.sid in self._stack:
+                self._stack.remove(sp.sid)
         return sp
 
     @contextmanager
@@ -141,11 +171,38 @@ class Tracer:
         sp.t1 = sp.t0
         return sp
 
+    def anchor(self) -> Span:
+        """Record an ``obs.clock`` anchor: the span clock's reading and
+        ``time.time_ns()`` taken together, the tightest of a few
+        back-to-back pairs (``attrs["err_ns"]`` is half its spread).
+        Only a tracer on the default clock has an epoch to anchor to."""
+        if not self.on_epoch_clock:
+            raise ValueError("a tracer on an injected clock has no anchor "
+                             "to the epoch")
+        best = None
+        for _ in range(ANCHOR_READS):
+            a = time.perf_counter()
+            e = time.time_ns()
+            b = time.perf_counter()
+            if best is None or b - a < best[1] - best[0]:
+                best = (a, b, e)
+        a, b, e = best
+        with self._lock:
+            sp = Span(sid=self._next_sid, name=CLOCK, t0=(a + b) / 2,
+                      t1=(a + b) / 2, attrs={
+                          "epoch_ns": e, "err_ns": round((b - a) * 5e8)})
+            self._next_sid += 1
+            self.spans.append(sp)
+        return sp
+
     # ------------------------------------------------------------ export
     def clear(self) -> None:
+        """Drop every span; a tracer on the default clock anchors anew."""
         self.spans.clear()
         self._stack.clear()
         self._next_sid = 0
+        if self.on_epoch_clock:
+            self.anchor()
 
     def dumps_jsonl(self) -> str:
         buf = io.StringIO()
@@ -182,10 +239,13 @@ _TRACER: Tracer | None = None
 
 def set_tracer(tracer: Tracer | None) -> Tracer | None:
     """Install (or clear, with None) the process tracer; returns the
-    previous one so callers can restore it."""
+    previous one so callers can restore it.  A tracer on the default
+    clock takes an anchor as it is uninstalled."""
     global _TRACER
     prev = _TRACER
     _TRACER = tracer
+    if prev is not None and prev is not tracer and prev.on_epoch_clock:
+        prev.anchor()
     return prev
 
 
@@ -207,3 +267,37 @@ def trace_event(name: str, **attrs: Any) -> Span | None:
     if t is None:
         return None
     return t.event(name, **attrs)
+
+
+# ------------------------------------------------------- shared clock
+def anchors(spans) -> list[tuple[float, int]]:
+    """The (span clock, epoch ns) pairs of the spans' ``obs.clock``
+    anchors, in clock order."""
+    return sorted((s.t0, s.attrs["epoch_ns"]) for s in spans
+                  if s.name == CLOCK)
+
+
+# anchors closer than this give no slope: the later one's offset is used
+MIN_SLOPE_S = 1e-3
+
+
+def to_trace_us(t: float, pairs: list[tuple[float, int]],
+                base_ns: int = 0) -> float:
+    """A span time ``t`` in microseconds from ``base_ns`` on the epoch
+    (a chrome trace's ``ts`` when ``base_ns`` is its
+    ``baseTimeNanoseconds``), interpolated linearly between the nearest
+    of ``pairs`` (``anchors(spans)``); one anchor gives its offset."""
+    if not pairs:
+        raise ValueError("no clock anchors: these spans were timed on an "
+                         "injected clock, or by a tracer that was not "
+                         "anchored")
+    i = 0
+    while i + 2 < len(pairs) and pairs[i + 1][0] <= t:
+        i += 1
+    c0, e0 = pairs[i]
+    slope = 1e9
+    if i + 1 < len(pairs):
+        c1, e1 = pairs[i + 1]
+        if c1 - c0 >= MIN_SLOPE_S:
+            slope = (e1 - e0) / (c1 - c0)
+    return ((e0 - base_ns) + (t - c0) * slope) / 1e3

@@ -537,6 +537,7 @@ class ContinuousScheduler:
                 f"admission queue full ({self.cfg.max_queue}); request "
                 f"{req.req_id} rejected")
         self.queue.append(req)
+        trace_event("sched.queued", req_id=req.req_id)
         return None
 
     def _deadline_of(self, req: Request) -> float | None:
@@ -575,7 +576,6 @@ class ContinuousScheduler:
             first_token_s=float("nan"), finish_s=now)
         self.results.append(res)
         self.metrics.record_result(res)
-        trace_event(f"sched.{state.value}", req_id=req.req_id)
         if self.on_finish is not None:
             self.on_finish(res)
         return res
@@ -651,10 +651,14 @@ class ContinuousScheduler:
         """One scheduler tick: admit -> prefill chunk(s) -> decode.
 
         Observability: the tick is one ``sched.tick`` span with
-        ``sched.prefill_chunk`` / ``sched.decode_batch`` children;
-        admission opens a detached per-request ``sched.request`` span
-        that ``_emit`` closes at finish.  Registry counters mirror the
-        ``ServingMetrics`` tick accounting under ``sched.*``."""
+        ``sched.admit``, ``sched.prefill_chunk``, ``sched.decode_batch``
+        (or ``sched.verify_batch``) and ``sched.emit`` children, the
+        decode batch's wait for its tokens in ``sched.sample``;
+        ``submit`` marks a ``sched.queued`` event, admission opens a
+        detached per-request ``sched.request`` span (child of the tick,
+        the same ``req_id``) that ``_emit`` closes at finish.  Registry
+        counters mirror the ``ServingMetrics`` tick accounting under
+        ``sched.*``."""
         wall0 = time.perf_counter()
         with _span("sched.tick", tick=self.metrics.steps) as tick_sp, \
                 torch.inference_mode():
@@ -665,8 +669,6 @@ class ContinuousScheduler:
             # stuck-tick watchdog: detection only — the tick already ran
             # to completion, so state is consistent
             _REG.inc("sched.watchdog_trips")
-            trace_event("sched.watchdog", duration_s=wall,
-                        budget_s=self.cfg.watchdog_tick_s)
         if self.on_tick is not None:
             self.on_tick(self)
 
@@ -690,39 +692,8 @@ class ContinuousScheduler:
 
         # 1. admission: start prefilling the oldest queued request (rank
         # 0's choice on a tensor-parallel engine)
-        admitted = self._admit(orders)
-        if admitted is not None:
-            req, slot = admitted
-            if slot.stop_token is None:     # scheduler default, resolved
-                slot.stop_token = self.cfg.stop_token   # on the slot —
-            #                                 the Request is never mutated
-            padded_len = self.buckets.padded_len(req.prompt_len)
-            buf = np.zeros((1, padded_len), np.int32)
-            buf[0, :req.prompt_len] = req.tokens
-            chunks = self.buckets.plan_chunks(req.prompt_len)
-            if self.prefix_cache is not None:
-                # KV prefix reuse: a cached prefix of P tokens (always a
-                # full-chunk boundary, always < prompt_len) is grafted
-                # into the prefill cache and its chunks are skipped —
-                # the remaining chunks read the grafted rows through
-                # attention exactly as if they had just been prefilled
-                # (KV at position i depends only on tokens <= i)
-                hit = self.prefix_cache.lookup(req.tokens)
-                if hit is not None:
-                    p, entry = hit
-                    self.prefix_cache.graft(self._prefill_cache, entry)
-                    chunks = [c for c in chunks
-                              if c.start + c.width > p]
-                    _REG.inc("sched.prefix_tokens_reused", p)
-            self._prefill = _Prefill(
-                slot=slot, chunks=collections.deque(chunks), padded=buf)
-            _REG.inc("sched.admitted")
-            tr = get_tracer()
-            if tr is not None:
-                self._req_spans[req.req_id] = tr.start(
-                    "sched.request", detached=True, req_id=req.req_id,
-                    prompt_len=req.prompt_len,
-                    max_new_tokens=req.max_new_tokens)
+        with _span("sched.admit"):
+            self._admission(orders, tick_sp)
 
         # 2. chunked prefill of the in-flight request
         budget = max(1, self.cfg.prefill_chunks_per_step)
@@ -766,17 +737,19 @@ class ContinuousScheduler:
                     victim = active[hit.index % len(active)].idx
                     last[victim] = float(hit.payload.get("value",
                                                          float("nan")))
-                nxt, finite = self._sample_rows(
-                    last, {s.idx: self._step_key(s.req, s.emitted)
-                           for s in active})
+                with _span("sched.sample"):
+                    nxt, finite = self._sample_rows(
+                        last, {s.idx: self._step_key(s.req, s.emitted)
+                               for s in active})
                 active = self._guard_rows(finite, active)
             now = self.clock()
-            for slot in active:
-                tok = int(nxt[slot.idx])
-                self._pos[slot.idx] += 1
-                self._cur[slot.idx] = tok
-                slot.next_token = tok
-                self._emit(slot, tok, now)
+            with _span("sched.emit", rows=len(active)):
+                for slot in active:
+                    tok = int(nxt[slot.idx])
+                    self._pos[slot.idx] += 1
+                    self._cur[slot.idx] = tok
+                    slot.next_token = tok
+                    self._emit(slot, tok, now)
             _REG.inc("sched.decode_steps")
             _REG.inc("sched.padded_decode_rows",
                      len(self.slots) - len(active))
@@ -791,6 +764,44 @@ class ContinuousScheduler:
             chunks=chunks_run, padded_tokens=padded_tokens,
             padded_rows=padded_rows)
         self.metrics.finished_s = self.clock()
+
+    def _admission(self, orders: TickOrders | None, tick_sp) -> None:
+        """Step 1 of a tick: start prefilling the admitted request, if
+        any, and open its ``sched.request`` span under the tick."""
+        admitted = self._admit(orders)
+        if admitted is None:
+            return
+        req, slot = admitted
+        if slot.stop_token is None:     # scheduler default, resolved
+            slot.stop_token = self.cfg.stop_token   # on the slot —
+        #                                 the Request is never mutated
+        padded_len = self.buckets.padded_len(req.prompt_len)
+        buf = np.zeros((1, padded_len), np.int32)
+        buf[0, :req.prompt_len] = req.tokens
+        chunks = self.buckets.plan_chunks(req.prompt_len)
+        if self.prefix_cache is not None:
+            # KV prefix reuse: a cached prefix of P tokens (always a
+            # full-chunk boundary, always < prompt_len) is grafted
+            # into the prefill cache and its chunks are skipped —
+            # the remaining chunks read the grafted rows through
+            # attention exactly as if they had just been prefilled
+            # (KV at position i depends only on tokens <= i)
+            hit = self.prefix_cache.lookup(req.tokens)
+            if hit is not None:
+                p, entry = hit
+                self.prefix_cache.graft(self._prefill_cache, entry)
+                chunks = [c for c in chunks
+                          if c.start + c.width > p]
+                _REG.inc("sched.prefix_tokens_reused", p)
+        self._prefill = _Prefill(
+            slot=slot, chunks=collections.deque(chunks), padded=buf)
+        _REG.inc("sched.admitted")
+        tr = get_tracer()
+        if tr is not None:
+            self._req_spans[req.req_id] = tr.start(
+                "sched.request", detached=True, parent=tick_sp,
+                req_id=req.req_id, prompt_len=req.prompt_len,
+                max_new_tokens=req.max_new_tokens)
 
     # ------------------------------------------------- speculative decode
     def _decode_spec(self, active: list[Slot]) -> list[Slot]:
@@ -830,21 +841,22 @@ class ContinuousScheduler:
             self._evict_errored(slot, now)
         active = [s for s in active if finite[s.idx]]
         now = self.clock()
-        for slot in active:
-            idx = slot.idx
-            m = 0
-            while m < k and drafts[idx][m] == int(greedy[idx, m]):
-                m += 1
-            _REG.inc("sched.spec.rounds")
-            _REG.inc("sched.spec.drafted", k)
-            _REG.inc("sched.spec.accepted", m)
-            for tok in greedy[idx, :m + 1]:
-                self._pos[idx] += 1
-                self._cur[idx] = int(tok)
-                slot.next_token = int(tok)
-                self._emit(slot, int(tok), now)
-                if slot.free:
-                    break           # stop token / budget hit mid-window
+        with _span("sched.emit", rows=len(active)):
+            for slot in active:
+                idx = slot.idx
+                m = 0
+                while m < k and drafts[idx][m] == int(greedy[idx, m]):
+                    m += 1
+                _REG.inc("sched.spec.rounds")
+                _REG.inc("sched.spec.drafted", k)
+                _REG.inc("sched.spec.accepted", m)
+                for tok in greedy[idx, :m + 1]:
+                    self._pos[idx] += 1
+                    self._cur[idx] = int(tok)
+                    slot.next_token = int(tok)
+                    self._emit(slot, int(tok), now)
+                    if slot.free:
+                        break       # stop token / budget hit mid-window
         _REG.inc("sched.decode_steps")
         _REG.inc("sched.padded_decode_rows",
                  len(self.slots) - len(active))
@@ -883,8 +895,6 @@ class ContinuousScheduler:
             else float("nan"), finish_s=now)
         self.results.append(res)
         self.metrics.record_result(res)
-        trace_event("sched.errored", req_id=req.req_id,
-                    n_generated=res.n_generated)
         tr = get_tracer()
         rsp = self._req_spans.pop(req.req_id, None)
         if tr is not None and rsp is not None:

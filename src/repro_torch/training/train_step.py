@@ -15,6 +15,13 @@ slices: a data-split leaf's gradient comes out of the FSDP gather's
 backward already reduced, the others take the exact mean over the data
 group, and the leaves each rank reads only in part are summed over the
 model axis (``dist.fsdp.ShardedLayout``).
+
+Under a tracer (``obs.tracing``) a step is one ``train.step`` span
+holding ``train.forward`` and ``train.backward`` for each microbatch,
+``train.reduce`` around a data-parallel or sharded reduction, and
+``train.optimizer`` around the update.  Spans that a rematerialized
+layer opens in the backward, on autograd's device thread too, parent
+under ``train.backward``.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import torch.distributed as dist
 from ..dist.fsdp import ShardedLayout
 from ..launch.mesh import group_mesh
 from ..models.model import Model
+from ..obs.tracing import span as _span
 from . import optimizer as opt
 from .grad_compression import (comm_stats, exact_mean, init_error_buffers,
                                make_compressed_allreduce)
@@ -41,10 +49,15 @@ def _grads_of(model: Model, params, batch, *, microbatches: int,
     live_leaves = opt.tree_leaves(live)
 
     def one(mbatch):
-        loss = model.loss(live, mbatch, remat=remat, data_mean=data_mean)
-        grads = torch.autograd.grad(loss, live_leaves, allow_unused=True)
-        return loss.detach(), [torch.zeros_like(p) if g is None else g
-                               for p, g in zip(leaves, grads)]
+        with _span("train.forward"):
+            loss = model.loss(live, mbatch, remat=remat,
+                              data_mean=data_mean)
+        with _span("train.backward"):
+            grads = torch.autograd.grad(loss, live_leaves,
+                                        allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves, grads)]
+        return loss.detach(), grads
 
     if microbatches == 1:
         loss, grads = one(batch)
@@ -120,22 +133,26 @@ def jit_train_step(model: Model, cfg_opt: opt.AdamWConfig, group=None, *,
     data_mean = group_mesh(group).data_mean if data_parallel else None
 
     def step(params, opt_state, batch):
-        loss, grads = _grads_of(model, params, batch,
-                                microbatches=microbatches, remat=remat,
-                                data_mean=data_mean)
-        step.comm = comm_stats()
-        if data_parallel:
-            if compress:
-                if step.errors is None:
-                    step.errors = init_error_buffers(grads)
-                grads, step.errors = make_compressed_allreduce(
-                    group, stats=step.comm)(grads, step.errors)
-            else:
-                grads = opt.tree_map(
-                    lambda g: exact_mean(g, group, stats=step.comm), grads)
-            loss = exact_mean(loss, group)
-        params, opt_state, om = opt.apply_updates(params, grads, opt_state,
-                                                  cfg_opt, donate=True)
+        with _span("train.step"):
+            loss, grads = _grads_of(model, params, batch,
+                                    microbatches=microbatches, remat=remat,
+                                    data_mean=data_mean)
+            step.comm = comm_stats()
+            if data_parallel:
+                with _span("train.reduce"):
+                    if compress:
+                        if step.errors is None:
+                            step.errors = init_error_buffers(grads)
+                        grads, step.errors = make_compressed_allreduce(
+                            group, stats=step.comm)(grads, step.errors)
+                    else:
+                        grads = opt.tree_map(
+                            lambda g: exact_mean(g, group, stats=step.comm),
+                            grads)
+                    loss = exact_mean(loss, group)
+            with _span("train.optimizer"):
+                params, opt_state, om = opt.apply_updates(
+                    params, grads, opt_state, cfg_opt, donate=True)
         return params, opt_state, {"loss": loss, **om}
 
     step.errors = None
@@ -155,13 +172,16 @@ def _sharded_step(model: Model, cfg_opt: opt.AdamWConfig, mesh, group,
 
     def step(params, opt_state, batch):
         layout.comm.clear()
-        loss, grads = _grads_of(model, params, batch,
-                                microbatches=microbatches, remat=remat)
-        grads = layout.reduce_grads(grads)
-        loss = layout.mean_over_data(loss)
-        params, opt_state, om = opt.apply_updates(
-            params, grads, opt_state, cfg_opt, donate=True,
-            norm=layout.global_norm)
+        with _span("train.step"):
+            loss, grads = _grads_of(model, params, batch,
+                                    microbatches=microbatches, remat=remat)
+            with _span("train.reduce"):
+                grads = layout.reduce_grads(grads)
+                loss = layout.mean_over_data(loss)
+            with _span("train.optimizer"):
+                params, opt_state, om = opt.apply_updates(
+                    params, grads, opt_state, cfg_opt, donate=True,
+                    norm=layout.global_norm)
         step.comm = {k: dict(v) for k, v in layout.comm.items()}
         return params, opt_state, {"loss": loss, **om}
 

@@ -189,7 +189,7 @@ COPIED = ["faults.py", "configs/__init__.py", "configs/base.py",
           "core/dist_mapping.py", "core/workloads.py",
           "dist/__init__.py", "dist/mesh_solve.py",
           "planner/manifest.py", "planner/store.py",
-          "obs/registry.py", "obs/tracing.py", "obs/calibrate.py",
+          "obs/calibrate.py",
           "capture/program.py",
           "serving/router/__init__.py", "serving/router/router.py",
           *(f"serving/sched/{m}.py" for m in ("__init__", "requests",
