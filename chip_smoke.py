@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py [--out DIR]
     python3 chip_smoke.py --time-generate
+    python3 chip_smoke.py --attention [--out DIR]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 checks that the bf16 GEMM kernels and the scans run on the tensor cores
@@ -117,6 +118,18 @@ one's launch counts:
   and shapes == the profiled step's == phase 5's a pass, and each bound
   max(t_compute, t_memory) at most the step's device busy time; the
   shares and the train step's MFU are printed.
+- the fused attention kernel (phase 23, also alone with ``--attention``):
+  forward, dQ and dK/dV against the plain version in fp32 and against
+  fp64 on a slice, at stablelm-1.6b's training shape and a GQA shape at
+  head size 128 (each also ragged, from position 100) and non-causal;
+  against the walk (given ``kv_len=T``, the reference's mask) in bf16
+  (reported); each shape's device time beside
+  its least time, the walk's and SDPA's (``library_ms``, a yardstick the
+  port never calls); then stablelm-1.6b's 2 x 4096 training step with
+  2 x 24 forward and 24 backward calls of the kernel and none of the
+  walk, and a profile of one step; serving with a cache stays on the
+  walk, and the encoder-decoder's encoder, which has none, takes the
+  kernel.
 
 Imports nothing of JAX and nothing of the reference package.
 
@@ -5284,6 +5297,315 @@ def profile_run(fn, smi: str, out: pathlib.Path | None, name: str, *,
     return summary
 
 
+# --------------------------------------------------------------- phase 23
+# the fused attention kernel (kernels/attention.py) against its plain
+# version and the walk: (name, B, S, H, KV, hd, causal, first position).
+# stablelm-1.6b's training shape and a GQA shape at head size 128 (32
+# query heads on 8 KV heads), each also at a ragged length with positions
+# that do not start at 0, and a non-causal call (the encoder's kind)
+ATTN_SHAPES = (("train4k", 2, 4096, 32, 32, 64, True, 0),
+               ("train4k ragged", 2, 4001, 32, 32, 64, True, 100),
+               ("gqa hd128", 2, 4096, 32, 8, 128, True, 0),
+               ("gqa hd128 ragged", 2, 3001, 32, 8, 128, True, 100),
+               ("non-causal", 2, 1000, 16, 16, 64, False, 100))
+# kernel vs plain version in fp32 (the output before its bf16 rounding,
+# the log-sum-exp and the gradients written in fp32), each tensor's
+# largest gap over its largest magnitude.  Both sum the same exact
+# products in fp32 in other orders, over up to 4096 terms: each lies
+# within 3.5e-6 of fp64 on the H100
+ATTN_TOL = 1e-5
+# ... and against fp64 on a slice (exact_attention): the kernel's gap at
+# most this many times the plain version's (its fp32 sums are no less
+# exact than the walk's), or 1e-6
+ATTN_FP64_RATIO = 2.0
+# one training step of stablelm-1.6b at the benchmark's 2 x 4096
+ATTN_TRAIN = dict(batch=2, seq=4096, steps=3)
+
+
+def exact_attention(q, k, v, do, pos, causal) -> dict:
+    """The attention and its gradients in fp64 by autograd, on batch row
+    0 and the first KV head's group of query heads: {"o", "dq", "dk",
+    "dv"}, the sizes of those slices."""
+    G = q.shape[2] // k.shape[2]
+    leaves = [t[:1, :, :n].double().requires_grad_()
+              for t, n in ((q, G), (k, 1), (v, 1))]
+    qd, kd, vd = leaves
+    s = torch.einsum("bsgd,btd->bgst", qd, kd[:, :, 0]) / math.sqrt(
+        q.shape[-1])
+    s = s.masked_fill(pos[None, :] >= k.shape[1], -torch.inf)
+    if causal:
+        s = s.masked_fill(pos[None, :] > pos[:, None], -torch.inf)
+    o = torch.einsum("bgst,btd->bsgd", torch.softmax(s, -1), vd[:, :, 0])
+    o.backward(do[:1, :, :G].double())
+    return {"o": o.detach(), "dq": qd.grad, "dk": kd.grad, "dv": vd.grad}
+
+
+def attention_check(name, B, S, H, KV, hd, causal, start, gen,
+                    timed: bool) -> dict:
+    """The kernels against the plain version on the card in fp32 (held
+    at ATTN_TOL), both against fp64 on a slice (``exact_attention``,
+    held at ATTN_FP64_RATIO), and the kernels against the walk in bf16
+    (reported);
+    with ``timed`` the forward and
+    backward times of the kernels, the walk and SDPA (``library_ms``,
+    the yardstick the port never calls) beside the least time."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention as A
+    from repro_torch.models.layers import flash_attention
+    bf16 = torch.bfloat16
+    q, do = (rand((B, S, H, hd), bf16, gen) for _ in range(2))
+    k, v = (rand((B, S, KV, hd), bf16, gen) for _ in range(2))
+    pos = torch.arange(start, start + S, device="cuda")
+    args = (q, k, v, pos, pos, causal)
+    o, o32, lse = A._launch_forward(*args)
+    dq, dk, dv = A._launch_backward(*args, o32, lse, do,
+                                    grad_dtype=torch.float32)
+    torch.cuda.synchronize()
+    f = [t.float() for t in (q, k, v, do)]
+    po, po32, plse = A.fused_attention_plain(*f[:3], pos, pos, causal)
+    del po
+    grads = A.fused_attention_plain_backward(*f[:3], pos, pos, causal,
+                                             po32, plse, f[3])
+    row = {"name": name, "shape": [B, S, H, KV, hd], "causal": causal,
+           "first_position": start, "errors": {}, "vs_fp64": {}}
+    ex = exact_attention(q, k, v, do, pos, causal)
+    G = H // KV
+
+    def gap(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+    for i, (what, got, want) in enumerate((
+            ("o", o32, po32), ("lse", lse[..., :S], plse),
+            ("dq", dq, grads[0]),
+            ("dk", dk, grads[1]), ("dv", dv, grads[2]))):
+        row["errors"][what] = err = gap(got, want)
+        if not err <= ATTN_TOL:
+            raise AssertionError(f"attention {name}: {what} is {err} of "
+                                 f"scale from the plain version")
+        if what != "lse":
+            part = (slice(0, 1), slice(None), slice(0, G if what in (
+                "o", "dq") else 1))
+            row["vs_fp64"][what] = e = {
+                "kernel": gap(got[part].double(), ex[what]),
+                "plain": gap(want[part].double(), ex[what])}
+            if not e["kernel"] <= max(ATTN_FP64_RATIO * e["plain"], 1e-6):
+                raise AssertionError(f"attention {name}: {what}'s gap to "
+                                     f"fp64 {e}")
+    del grads, po32, plse, f, ex
+    free_device()
+    # against the walk in bf16, through autograd both; the walk given
+    # kv_len=T masks the keys at positions >= T, as the kernel does
+    leaves_ = [t.clone().requires_grad_() for t in (q, k, v)]
+    walk = flash_attention(*leaves_, q_positions=pos, kv_positions=pos,
+                           causal=causal, kv_len=S)
+    walk.backward(do)
+    kl = [t.clone().requires_grad_() for t in (q, k, v)]
+    fused = A.fused_attention(*kl, q_positions=pos, kv_positions=pos,
+                              causal=causal)
+    fused.backward(do)
+    row["vs_walk_bf16"] = {
+        what: float((a.detach().float() - b.detach().float()).abs().max()
+                    / b.detach().float().abs().max())
+        for what, a, b in (("o", fused, walk),
+                           *((f"d{n}", x.grad, w.grad) for n, x, w in
+                             zip("qkv", kl, leaves_)))}
+    del walk, fused, leaves_, kl
+    free_device()
+    print(f"  {name}: plain vs kernel {row['errors']}; each vs fp64 "
+          f"{row['vs_fp64']}; walk vs kernel (bf16) {row['vs_walk_bf16']}")
+    if not timed:
+        return row
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4 * B * H * hd * pairs
+    io = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)   # q, o; k, v
+    G = H // KV
+    row["forward"] = {
+        "ms": time_ms(lambda: A._launch_forward(*args)),
+        "device_ms": device_ms(lambda: A._launch_forward(*args), reps=5)}
+    row["backward"] = {
+        "ms": time_ms(lambda: A._launch_backward(*args, o32, lse, do)),
+        "device_ms": device_ms(
+            lambda: A._launch_backward(*args, o32, lse, do), reps=5)}
+    # the backward's function: the 4 products, q, k, v, o, dO and lse
+    # read, dq, dk, dv written
+    for part, fl, nb in (("forward", flops, io),
+                         ("backward", 2 * flops,
+                          2 * io + B * S * H * hd * 2 + B * H * S * 4)):
+        bound, by = bound_ms(nb, fl, bf16)
+        row[part].update(bound_ms=bound, bound_by=by,
+                         bound_share=bound / row[part]["device_ms"])
+
+    def walk_fwd():
+        with torch.no_grad():
+            flash_attention(q, k, v, q_positions=pos, kv_positions=pos,
+                            causal=causal)
+
+    def walk_both():
+        ls = [t.detach().requires_grad_() for t in (q, k, v)]
+        flash_attention(*ls, q_positions=pos, kv_positions=pos,
+                        causal=causal).backward(do)
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                           enable_gqa=G > 1)
+
+    def sdpa_both():
+        ls = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+        F.scaled_dot_product_attention(
+            *ls, is_causal=causal, enable_gqa=G > 1).backward(
+                do.transpose(1, 2))
+
+    row["forward"].update(plain_ms=time_ms(walk_fwd, reps=3),
+                          library_ms=time_ms(sdpa_fwd))
+    row["forward_backward"] = {
+        "ms": row["forward"]["ms"] + row["backward"]["ms"],
+        "plain_ms": time_ms(walk_both, reps=3),
+        "library_ms": time_ms(sdpa_both)}
+    free_device()
+    print(f"  {name}: forward {row['forward']}; backward "
+          f"{row['backward']}; forward and backward "
+          f"{row['forward_backward']}")
+    return row
+
+
+def attention_train_step(smi: str, out: pathlib.Path | None) -> dict:
+    """stablelm-1.6b at full width, 2 x 4096, fp32 masters, bf16, full
+    remat: ATTN_TRAIN's steps of jit_train_step, each loss finite; in
+    the last, the fused attention's wrapper runs its forward 2 x layers
+    times (the forward and the recompute) and its backward once a layer,
+    and no call stays on the walk (the registry's attn.kernel and
+    attn.walk).  Then one step under the profiler: device time by
+    kernel, busy and idle."""
+    from repro_torch.kernels.attention import _ranges, fused_attention
+    from repro_torch.obs.registry import get_registry
+    from repro_torch.training.train_step import jit_train_step
+    free_device()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params, state = train_full_setup()
+    step = jit_train_step(model, full_optimizer(), remat=True)
+    B, S = ATTN_TRAIN["batch"], ATTN_TRAIN["seq"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    reg = get_registry()
+    seconds, losses = [], []
+    for _ in range(ATTN_TRAIN["steps"]):
+        before = (fused_attention.launches,
+                  fused_attention.backward_launches,
+                  reg.get("attn.kernel"), reg.get("attn.walk"),
+                  _ranges.computed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        seconds.append(time.perf_counter() - t0)
+    counts = {"forward": fused_attention.launches - before[0],
+              "backward": fused_attention.backward_launches - before[1],
+              "attn.kernel": reg.get("attn.kernel") - before[2],
+              "attn.walk": reg.get("attn.walk") - before[3]}
+    want = {"forward": 2 * cfg.layers, "backward": cfg.layers,
+            "attn.kernel": 2 * cfg.layers, "attn.walk": 0}
+    tables = _ranges.computed - before[4]
+    if counts != want or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"a train step ran {counts}, not {want}; "
+                             f"losses {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_run(lambda: step(params, state, batch), smi, out,
+                       "profile_train4k", host_ops=False)
+    report = {"device": smi, "counts": counts, "tile_tables": tables,
+              "losses": losses,
+              "step_seconds": seconds, "tokens_per_s": B * S / seconds[-1],
+              "peak_memory_bytes": peak,
+              "profiled_step": {k: prof[k] for k in (
+                  "wall_ms", "device_busy_ms", "device_busy_share",
+                  "device_idle_share", "device_kernel_launches")}}
+    print(f"  train step 2 x 4096: {report}")
+    del params, state, step
+    free_device()
+    return report
+
+
+def attention_serving_route(device: str = "cuda") -> dict:
+    """Serving keeps the walk: llama3-8b's smoke config at head size 64
+    in bf16 (a call the kernel would take but for its cache) generates on
+    the card with ``attn.walk`` counting and ``attn.kernel`` not."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_to
+    from repro_torch.obs.registry import get_registry
+    from repro_torch.serving import Engine, ServeConfig
+    cfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
+                              head_dim=64, compute_dtype="bfloat16")
+    model = build_model(cfg)
+    params = tree_to(model.init_params(
+        torch.Generator().manual_seed(SEED), "cpu"), device)
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (4, 24)).astype(np.int32)
+    reg = get_registry()
+    before = {k: reg.get(k) for k in ("attn.kernel", "attn.walk")}
+    Engine(model, params, ServeConfig(max_new_tokens=8, cache_len=64)
+           ).generate(prompts)
+    moved = {k: reg.get(k) - v for k, v in before.items()}
+    if moved["attn.kernel"] != 0 or moved["attn.walk"] <= 0:
+        raise AssertionError(f"serving routed attention {moved}")
+    print(f"  serving with a cache: {moved}")
+    return moved
+
+
+def attention_encoder_route(device: str = "cuda") -> dict:
+    """The encoder-decoder's encoder has no cache, so serving runs it on
+    the kernel: seamless-m4t-medium's smoke config at head size 64 in
+    bf16 generates on the card with one ``attn.kernel`` an encoder layer
+    (non-causal) and its decoder's calls on the walk.  (The kernel's
+    non-causal numbers are ATTN_SHAPES' "non-causal" case.)"""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.model import tree_to
+    from repro_torch.obs.registry import get_registry
+    from repro_torch.serving import Engine, ServeConfig
+    cfg = dataclasses.replace(get_config("seamless-m4t-medium", smoke=True),
+                              head_dim=64, compute_dtype="bfloat16")
+    model = build_model(cfg)
+    params = tree_to(model.init_params(
+        torch.Generator().manual_seed(SEED), "cpu"), device)
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (4, 12)).astype(np.int32)
+    reg = get_registry()
+    before = {k: reg.get(k) for k in ("attn.kernel", "attn.walk")}
+    tokens = Engine(model, params, ServeConfig(max_new_tokens=4,
+                                               cache_len=32)).generate(
+        prompts, extra_batch=frontend_inputs(cfg, 4, device))
+    moved = {k: reg.get(k) - v for k, v in before.items()}
+    if moved["attn.kernel"] != cfg.encoder_layers or moved["attn.walk"] <= 0:
+        raise AssertionError(f"the encoder-decoder routed attention "
+                             f"{moved}, not {cfg.encoder_layers} encoder "
+                             f"layers on the kernel")
+    print(f"  the encoder-decoder's serving: {moved}; tokens "
+          f"{tokens.tolist()}")
+    return moved
+
+
+def attention_phase(smi: str, out: pathlib.Path | None,
+                    timed: bool = True) -> dict:
+    """Phase 23: every ATTN_SHAPES case (``attention_check``), serving's
+    route (``attention_serving_route``, ``attention_encoder_route``), then
+    the training step
+    (``attention_train_step``) when ``timed``."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = [attention_check(*shape, gen, timed) for shape in ATTN_SHAPES]
+    report = {"device": smi, "shapes": rows}
+    report["serving"] = attention_serving_route()
+    report["encoder"] = attention_encoder_route()
+    if timed:
+        report["train_step"] = attention_train_step(smi, out)
+    if out is not None:
+        (out / "attention.json").write_text(json.dumps(report, indent=1))
+    return report
+
+
 def time_generate(reps: int, smi: str) -> None:
     """Phase 5's static generate alone: llama3-8b at its published
     widths, bf16, fused MLP, FULL's batch, prompt and new tokens, weights
@@ -5327,6 +5649,8 @@ def main() -> None:
     ap.add_argument("--time-generate", action="store_true",
                     help="only time phase 5's static generate "
                          f"{PHASE5_TIMED_RUNS} times (time_generate)")
+    ap.add_argument("--attention", action="store_true",
+                    help="only phase 23: the fused attention kernel")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on "
@@ -5343,6 +5667,20 @@ def main() -> None:
     out = pathlib.Path(args.out) if args.out else None
     if out is not None:
         out.mkdir(parents=True, exist_ok=True)
+    if args.attention:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        print(f"  {smi}; torch {torch.__version__}")
+        with phase("23 the fused attention kernel"):
+            attention_phase(smi, out)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     from repro_torch.kernels import _build
     t_start = time.perf_counter()
     # fresh plan stores for phases 3 and 12, removed when the script ends
@@ -5657,6 +5995,11 @@ def main() -> None:
         roof = roofline_phase(full["serve"]["decode_step"],
                               train["report"]["full"], smi, out)
         print(f"  phase 22: {time.perf_counter() - t0:.1f} s")
+    free_device()
+    with phase("23 the fused attention kernel: against its plain version "
+               "and the walk, timed, and in stablelm-1.6b's 2 x 4096 "
+               "training step"):
+        attn = attention_phase(smi, out)
 
     b1 = next(r for r in b1_rows if r["shape"] == [4, 14336, 4096])
     b2 = next(r for r in b2_rows if r["shape"] == [4, 128, 64])
@@ -5700,6 +6043,15 @@ def main() -> None:
                                  if v[fn]},
             "shapes_by_path": {k: v[fn] for k, v in shapes.items()
                                if v[fn]}})
+    t4k = next(r for r in attn["shapes"] if r["name"] == "train4k")
+    kernels.append({
+        "name": "fused_attention (attn_fwd, attn_dq, attn_dkdv)",
+        "route": "cuda", "source": "src/repro_torch/kernels/csrc/attention.cu",
+        "replaces": None, "launches": attn["train_step"]["counts"],
+        "errors": t4k["errors"], "vs_fp64": t4k["vs_fp64"],
+        **{k: t4k[k] for k in ("forward", "backward", "forward_backward")},
+        "shape": t4k["shape"], "dtype": "bfloat16",
+        "path": "stablelm-1.6b training, 2 x 4096"})
     if out is not None:
         (out / "chip_smoke.json").write_text(json.dumps(
             {"device": smi, "mma": mma, "b1": b1_rows,
@@ -5725,6 +6077,7 @@ def main() -> None:
              "training": train["report"],
              "sharded_training": sharded["report"],
              "roofline": roof,
+             "attention": attn,
              "launches": runs,
              "shapes": shapes,
              "kernels": kernels,

@@ -1,4 +1,4 @@
-"""The port's kernels: hand-written CUDA C++ for Hopper (sm_90a) with a
+"""The port's kernels: hand-written CUDA C++ for Hopper (sm_90a), with a
 plain PyTorch version beside each.
 
   goma_gemm   — B1, the GOMA-planned GEMM (replaces the Pallas
@@ -10,11 +10,15 @@ plain PyTorch version beside each.
                 ``wkv6_pallas``).
   mamba2_ssd  — B4, the Mamba2 SSD chunked scan (replaces the Pallas
                 ``ssd_pallas``).
+  attention   — fused attention with its own backward, for attention
+                without a cache (replaces no Pallas kernel: the reference
+                leaves attention to XLA).
 
 ops.py holds the public GEMM wrappers, ref.py the plain oracles,
 _build.py the nvcc build and ctypes binding (run at first launch, never
 at import).
 """
+from .attention import fused_attention, fused_attention_plain
 from .goma_fused import goma_combine, goma_fused_matmul
 from .goma_gemm import goma_matmul
 from .mamba2_ssd import ssd_scan, ssd_scan_plain
@@ -22,7 +26,8 @@ from .ops import fused_mlp, fused_mlp_composition, gemm, gemm_plan_info
 from .ref import matmul_ref, ssd_ref, wkv6_ref
 from .wkv6 import wkv6_scan, wkv6_scan_plain
 
-__all__ = ["fused_mlp", "fused_mlp_composition", "gemm", "gemm_plan_info",
+__all__ = ["fused_attention", "fused_attention_plain", "fused_mlp",
+           "fused_mlp_composition", "gemm", "gemm_plan_info",
            "goma_combine", "goma_fused_matmul", "goma_matmul",
            "matmul_ref", "ssd_ref", "ssd_scan", "ssd_scan_plain",
            "wkv6_ref", "wkv6_scan", "wkv6_scan_plain"]

@@ -24,7 +24,8 @@ import types
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("goma_gemm.cu", "goma_fused.cu", "wkv6.cu", "mamba2_ssd.cu")
+SOURCES = ("goma_gemm.cu", "goma_fused.cu", "wkv6.cu", "mamba2_ssd.cu",
+           "attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
@@ -32,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_long
+_F = ctypes.c_float
 # C signatures of the launchers (all return the launch's cudaError_t)
 SIGNATURES = {
     "goma_matmul_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -49,6 +51,9 @@ SIGNATURES = {
     "ssd_smem_bytes": [_I, _I, _I],
     "ssd_ctas_per_sm": [_I, _I, _I],
     "ssd_scratch_floats": [_I, _I, _I],
+    "attn_tile": [_I, _I],
+    "attn_fwd_launch": [_P] * 10 + [_I] * 8 + [_F, _P],
+    "attn_bwd_launch": [_P] * 16 + [_I] * 9 + [_F, _P],
 }
 
 

@@ -3,10 +3,15 @@ counterpart of the reference's ``models/layers.py``).
 
 Parameters are nested dicts of tensors with the reference's layout
 (``(d_in, d_out)`` projection weights), so ``convert.params_from_jax``
-moves a JAX pytree over as it is.  Attention is plain PyTorch, the
-reference's flash-style walk over key blocks (sliding windows,
-local/global alternation, softcaps, cross-attention): the reference
-leaves it to XLA, so the port has no hand kernel for it.  The
+moves a JAX pytree over as it is.  Attention without a cache (a
+training loss's self-attention, and the encoder's, in training and in
+serving), with no active window and no softcap, on bf16 CUDA tensors at
+head size 64 or 128, runs the fused attention kernel with its own
+backward (``kernels/attention.py``); every other call (the decoder's
+serving with its cache, cross-attention, windows, softcaps) runs
+``flash_attention``, the reference's flash-style walk over key blocks in
+plain PyTorch.  The registry counts the calls of each route
+(``attn.kernel``, ``attn.walk``).  The
 gated MLP runs through the GOMA-planned kernels when the config asks for
 the fused MLP.  ``pad_seq`` pads a sequence to a scan's chunk for the
 recurrent blocks (``rwkv.py``, ``ssm.py``).
@@ -18,9 +23,13 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..kernels import goma_gemm
+from ..kernels.attention import HEAD_DIMS, fused_attention
 from ..kernels.ops import fused_mlp
+from ..obs.registry import get_registry
 
 Params = dict
+_REG = get_registry()
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -177,6 +186,29 @@ def write_rows(cache: torch.Tensor, new: torch.Tensor,
     cache[rows, cols] = new.to(cache.dtype)
 
 
+def on_kernel_device(t: torch.Tensor) -> bool:
+    """Whether t lies where the fused attention kernel runs: on a CUDA
+    card, or on the meta device while a program analysis collects the
+    kernel calls (the kernel then reports its work, as the card runs
+    it).  The CPU keeps the walk; the kernel's plain version runs there
+    only when it is called directly."""
+    return t.is_cuda or (goma_gemm.traced_calls is not None
+                         and t.device.type == "meta")
+
+
+def takes_kernel(q, k, v, *, cache, xkv, softcap, window,
+                 window_active) -> bool:
+    """Whether ``attention_apply`` runs the fused attention kernel: no
+    cache and no cross-attention, no softcap, no active window, and bf16
+    q, k, v of a head size the kernel is built for, on the kernel's
+    device (``on_kernel_device``)."""
+    return (cache is None and xkv is None and softcap is None
+            and (window is None or window_active is False)
+            and q.shape[-1] in HEAD_DIMS
+            and all(t.dtype == torch.bfloat16 for t in (q, k, v))
+            and on_kernel_device(q))
+
+
 def attention_apply(p: Params, x: torch.Tensor, *, n_heads: int,
                     kv_heads: int, head_dim: int, rope_theta: float | None,
                     q_positions: torch.Tensor,
@@ -245,10 +277,17 @@ def attention_apply(p: Params, x: torch.Tensor, *, n_heads: int,
     if kv_range is not None:
         lo, hi = kv_range
         k, v = k[:, :, lo:hi], v[:, :, lo:hi]
-    out = flash_attention(q, k, v, q_positions=q_positions,
-                          kv_positions=kv_positions, causal=causal,
-                          window=window, window_active=window_active,
-                          kv_len=kv_len, softcap=softcap, block=block)
+    if takes_kernel(q, k, v, cache=cache, xkv=xkv, softcap=softcap,
+                    window=window, window_active=window_active):
+        _REG.inc("attn.kernel")
+        out = fused_attention(q, k, v, q_positions=q_positions,
+                              kv_positions=kv_positions, causal=causal)
+    else:
+        _REG.inc("attn.walk")
+        out = flash_attention(q, k, v, q_positions=q_positions,
+                              kv_positions=kv_positions, causal=causal,
+                              window=window, window_active=window_active,
+                              kv_len=kv_len, softcap=softcap, block=block)
     return dense(p["wo"], out.reshape(B, S, n_heads * head_dim)), cache
 
 

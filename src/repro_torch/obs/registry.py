@@ -29,6 +29,9 @@ Conventions used across the repo:
   kernel.{gemm,fused_mlp}.dispatch   calls of ``kernels.ops.gemm`` /
                                      ``fused_mlp`` (a captured trace
                                      counts its calls too)
+  attn.{kernel,walk}              ``layers.attention_apply`` calls
+                                  routed to the fused attention kernel /
+                                  kept on the walk
   sched.*                         scheduler ticks / chunks / tokens
   sched.spec.{rounds,drafted,accepted}   scheduler-side speculative
                                   verify rounds and acceptance tallies
