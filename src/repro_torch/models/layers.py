@@ -10,8 +10,11 @@ head size 64 or 128, runs the fused attention kernel with its own
 backward (``kernels/attention.py``); every other call (the decoder's
 serving with its cache, cross-attention, windows, softcaps) runs
 ``flash_attention``, the reference's flash-style walk over key blocks in
-plain PyTorch.  The registry counts the calls of each route
-(``attn.kernel``, ``attn.walk``).  The
+plain PyTorch.  Latent attention (``mla.py``) has query/key heads of 192
+and value heads of 128, which the kernel is not built for: its
+training loss walks (its serving attends over the latent cache).  The
+registry counts the calls of each route (``attn.kernel``,
+``attn.walk``).  The
 gated MLP runs through the GOMA-planned kernels when the config asks for
 the fused MLP.  ``pad_seq`` pads a sequence to a scan's chunk for the
 recurrent blocks (``rwkv.py``, ``ssm.py``).

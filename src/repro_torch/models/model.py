@@ -6,7 +6,11 @@ reference's ``models/model.py``).
 Parameters keep the reference's pytree layout, with the layer stack on
 axis 0 of every ``params["layers"]`` (and ``params["encoder"]``) leaf;
 the stack runs as a Python loop over the layers.  An MoE layer is a
-dense layer whose MLP is the mixture of experts (``moe.py``).  The
+dense layer whose MLP is the mixture of experts (``moe.py``).  A
+latent-attention model (``configs.deepseek_v2_lite.MLAConfig``, family
+"moe") keeps its leading dense layers in ``params["dense_layers"]`` and
+its MoE layers in ``params["layers"]``, each with multi-head latent
+attention (``mla.py``), and one latent cache over all of them.  The
 hybrid (zamba2) applies one weight-shared attention+MLP block after
 every ``attn_every`` Mamba2 layers, with a KV cache per application.
 The VLM is the dense stack over a prefix of patch embeddings in front of
@@ -45,8 +49,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import SHAPES, ArchConfig, ShapeSpec
+from ..configs.deepseek_v2_lite import MLAConfig
 from ..sharding.rules import map_with_paths
 from . import layers as L
+from . import mla as MLA
 from . import moe as MOE
 from . import rwkv as RW
 from . import ssm as SSM
@@ -57,7 +63,8 @@ from .parallel import TensorParallel
 # use (layers.dense), the port once when they are made or converted.  The
 # MoE family's expert banks and shared experts are not among them: the
 # reference upcasts those to fp32 at every use, the port stores them in
-# the compute dtype and upcasts them per layer call (moe.py, convert.py)
+# the compute dtype and upcasts them per layer call in the dense and
+# gathered dispatches (moe.py, convert.py)
 _ATTN = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"))
 _ATTN_MLP = _ATTN + (("mlp", "wg"), ("mlp", "wu"), ("mlp", "wd"))
 _SSM = (("layers", "ssm", "in_proj"), ("layers", "ssm", "out_proj"))
@@ -205,10 +212,25 @@ class Model:
                              "wd": proj(cfg.d_ff, d, lead)}
             return lp
 
+        def mla_layers(lead, moe):
+            lp = {"ln1": norm(lead + (d,)),
+                  "attn": MLA.mla_init(normal, full, cfg, lead, cdt, pdt),
+                  "ln2": norm(lead + (d,))}
+            if moe:
+                lp["moe"] = MOE.moe_init(normal, cfg, lead, cdt)
+            else:
+                lp["mlp"] = {"wg": proj(d, cfg.dense_d_ff, lead),
+                             "wu": proj(d, cfg.dense_d_ff, lead),
+                             "wd": proj(cfg.dense_d_ff, d, lead)}
+            return lp
+
         p = {"embed": {"e": normal((cfg.padded_vocab, d), 0.02, pdt)},
              "final_norm": norm((d,))}
         fam = cfg.family
-        if fam in ("dense", "moe", "vlm"):
+        if isinstance(cfg, MLAConfig):
+            p["dense_layers"] = mla_layers((cfg.first_dense_layers,), False)
+            p["layers"] = mla_layers((cfg.moe_layers,), True)
+        elif fam in ("dense", "moe", "vlm"):
             p["layers"] = attn_mlp((n,), moe=fam == "moe")
         elif fam == "encdec":
             p["encoder"] = attn_mlp((cfg.encoder_layers,))
@@ -366,7 +388,7 @@ class Model:
 
     def _attn_block(self, lp, x, positions, *, block="layers", layer=None,
                     window_flag=None, cache=None, cache_index=None,
-                    remat=False, data_mean=None):
+                    remat=False, data_mean=None, angles=None):
         """Pre-norm attention and gated MLP (or mixture of experts) with
         residuals: a dense, VLM or MoE layer, or the hybrid's shared
         block (``block`` is the path of its parameters).  The config's
@@ -379,19 +401,25 @@ class Model:
         all_reduce after each sums the partial outputs.  With ``remat``
         the block is rematerialized (``_ckpt``; training passes no
         cache).  ``layer``: the index of a stacked layer (its parameters
-        are gathered inside the body under FSDP)."""
+        are gathered inside the body under FSDP).  ``angles``: a
+        latent-attention pass's rope angles (``mla.rope_angles``)."""
         cfg = self.cfg
 
         def body(lp, x):
             lp = self._whole(lp, block, layer)
-            h, _ = L.attention_apply(
-                lp["attn"], L.apply_norm(lp["ln1"], x, cfg.norm),
-                **self._heads(f"{block}/attn"),
-                head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-                q_positions=positions, causal=True, window=cfg.window,
-                window_active=window_flag, softcap=cfg.attn_softcap,
-                cache=cache, cache_index=cache_index,
-                enter=self._enterer(f"{block}/attn/wo/w"))
+            y = L.apply_norm(lp["ln1"], x, cfg.norm)
+            if isinstance(cfg, MLAConfig):
+                h = MLA.mla_apply(lp["attn"], cfg, y, positions,
+                                  cache=cache, cache_index=cache_index,
+                                  angles=angles)
+            else:
+                h, _ = L.attention_apply(
+                    lp["attn"], y, **self._heads(f"{block}/attn"),
+                    head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+                    q_positions=positions, causal=True, window=cfg.window,
+                    window_active=window_flag, softcap=cfg.attn_softcap,
+                    cache=cache, cache_index=cache_index,
+                    enter=self._enterer(f"{block}/attn/wo/w"))
             x = x + self._reduce(h, f"{block}/attn/wo/w")
             y = L.apply_norm(lp["ln2"], x, cfg.norm)
             if "moe" in lp:
@@ -420,6 +448,9 @@ class Model:
         cfg = self.cfg
         fam = cfg.family
         aux = x.new_zeros((), dtype=torch.float32)
+        if isinstance(cfg, MLAConfig):
+            return self._mla_stack(params, x, positions, caches,
+                                   cache_index, remat, data_mean, aux)
         if fam in ("dense", "moe", "vlm"):
             for i, lp in enumerate(self._layers(params, "layers")):
                 cache = (None if caches is None
@@ -438,6 +469,30 @@ class Model:
                                     remat), aux
         return self._ssm_stack(params, x, positions, caches, cache_index,
                                remat), aux
+
+    def _mla_stack(self, params, x, positions, caches, cache_index, remat,
+                   data_mean, aux):
+        """The latent-attention stack: the leading dense layers, then the
+        MoE layers; layer i reads and writes slice i of the latent cache
+        ({"ckv"}, stacked over every layer).  One device only."""
+        if self.tp is not None or self.fsdp is not None:
+            raise ValueError(f"{self.cfg.name}: latent attention runs on "
+                             f"one device; it has no tensor-parallel or "
+                             f"FSDP layout")
+        stack = [("dense_layers", lp)
+                 for lp in unbind_tree(params["dense_layers"])]
+        stack += [("layers", lp) for lp in unbind_tree(params["layers"])]
+        angles = MLA.rope_angles(positions, self.cfg)
+        for i, (block, lp) in enumerate(stack):
+            cache = (None if caches is None
+                     else {k: v[i] for k, v in caches.items()})
+            x, a = self._attn_block(lp, x, positions, block=block,
+                                    cache=cache, cache_index=cache_index,
+                                    remat=remat, data_mean=data_mean,
+                                    angles=angles)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     def _rwkv_stack(self, params, x, caches, cache_index, remat=False):
         """RWKV-6 layers; on a tensor-parallel rank the time mix runs the
@@ -698,7 +753,9 @@ class Model:
         the layer axis (dense) or on the group axis (the hybrid's shared
         block); RWKV state and shift carries on the layer axis; Mamba2
         states and conv carries on (group, layer in group).  The MoE and
-        VLM families' cache is the dense one; the encoder-decoder's is
+        VLM families' cache is the dense one, but a latent-attention
+        model's holds [c_kv | k_pe] of every layer, {"ckv"}
+        (``mla.cache_shapes``); the encoder-decoder's is
         the decoder's self-attention cache, {"self": {"k", "v"}}.  On a
         tensor-parallel rank the KV caches hold the rank's KV heads
         (``cache_spec``'s split), the recurrent states the rank's heads
@@ -717,6 +774,10 @@ class Model:
             shape = (n_layers, batch, max_len, heads, cfg.head_dim)
             return {"k": zeros(shape), "v": zeros(shape)}
 
+        if isinstance(cfg, MLAConfig):
+            return {"layers": {k: zeros(shape) for k, shape in
+                               MLA.cache_shapes(cfg, n, batch,
+                                                max_len).items()}}
         if cfg.family in ("dense", "moe", "vlm"):
             return {"layers": kv(n)}
         if cfg.family == "encdec":

@@ -32,6 +32,17 @@ Conventions used across the repo:
   attn.{kernel,walk}              ``layers.attention_apply`` calls
                                   routed to the fused attention kernel /
                                   kept on the walk
+  attn.mla                        latent-attention calls (``models.mla``;
+                                  an expanded one also counts attn.walk)
+  moe.dropless.calls              dropless expert-layer calls
+  moe.rows_routed                 (token, expert) rows they routed (the
+                                  rows of each expert are summed on the
+                                  device: ``models.moe.ROUTE_LOAD``)
+  serve.graphs.{captured,failures}   serving passes captured as CUDA
+                                  graphs / captures that failed, after
+                                  which the passes run eagerly
+                                  (``serving.graphs``; a replay adds
+                                  its pass's counts to the others)
   sched.*                         scheduler ticks / chunks / tokens
   sched.spec.{rounds,drafted,accepted}   scheduler-side speculative
                                   verify rounds and acceptance tallies

@@ -7,7 +7,9 @@ step-level primitives — ``new_cache`` / ``prefill_chunk`` /
 ``decode_slots`` / ``insert_row`` / ``sample`` — which the
 continuous-batching scheduler (``serving.sched``) composes into an
 admission / prefill / decode loop.  PyTorch runs eagerly, so there is
-nothing to compile; caches are updated in place, and the decode loop
+nothing to compile (with ``ServeConfig.step_graphs`` a latent-attention
+model's chunks and decode steps replay as CUDA graphs instead,
+``serving.graphs``); caches are updated in place, and the decode loop
 keeps its bookkeeping on the device and synchronises with the host only
 for the sparse stop-token check and the final transfer.
 
@@ -50,6 +52,9 @@ class ServeConfig:
     temperature: float = 0.0        # 0 = greedy
     stop_token: int | None = None
     cache_len: int = 512
+    # replay prefill chunks and decode steps as CUDA graphs (a
+    # latent-attention model on the card; ``serving.graphs``)
+    step_graphs: bool = False
 
 
 def gumbel_noise(shape, generator: torch.Generator,
@@ -99,6 +104,10 @@ class Engine:
         # optional GOMA plan database (planner.PlanStore): serving
         # traffic consumes cached kernel tilings instead of solving inline
         self.plan_store = plan_store
+        self.graphs = None
+        if cfg.step_graphs:
+            from .graphs import StepGraphs
+            self.graphs = StepGraphs(model, params)
 
     @property
     def mesh(self):
@@ -115,8 +124,12 @@ class Engine:
 
     def prefill_chunk(self, cache, tokens, index: int):
         """Run one prefill chunk (B, W) at scalar write position `index`
-        against an existing cache; returns (logits (B, W, V), cache)."""
+        against an existing cache; returns (logits (B, W, V), cache).
+        With step graphs, the logits are the graph's, until its next
+        replay."""
         tokens = torch.as_tensor(tokens, device=self.device)
+        if self.graphs is not None:
+            return self.graphs.run(cache, tokens, index)
         return self.model.decode_step(self.params, cache, tokens, index)
 
     def decode_slots(self, cache, tokens, positions):
@@ -126,6 +139,8 @@ class Engine:
         (logits (B, S, V), cache), the cache updated in place."""
         tokens = torch.as_tensor(tokens, device=self.device)
         positions = torch.as_tensor(positions, device=self.device)
+        if self.graphs is not None:
+            return self.graphs.run(cache, tokens, positions)
         return self.model.decode_step(self.params, cache, tokens, positions)
 
     @torch.inference_mode()
