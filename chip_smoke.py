@@ -3,6 +3,7 @@
     python3 chip_smoke.py [--out DIR]
     python3 chip_smoke.py --time-generate
     python3 chip_smoke.py --attention [--out DIR]
+    python3 chip_smoke.py --mla [--out DIR]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 checks that the bf16 GEMM kernels and the scans run on the tensor cores
@@ -130,6 +131,12 @@ one's launch counts:
   walk, and a profile of one step; serving with a cache stays on the
   walk, and the encoder-decoder's encoder, which has none, takes the
   kernel.
+- the latent attention kernel (phase 24, also alone with ``--mla``):
+  against its plain version and the products it replaces in bf16, at
+  dsv2lite.chat8k's decode shape (128 slots of 8192, positions from the
+  cell's length distributions) and at 512-wide chunks over a 4096 and a
+  6144 bucket; each call's CUDA graph replays the eager call bit for bit;
+  device times beside the bytes bound and the products' times.
 
 Imports nothing of JAX and nothing of the reference package.
 
@@ -5606,6 +5613,317 @@ def attention_phase(smi: str, out: pathlib.Path | None,
     return report
 
 
+# phase 24: the latent attention kernel at dsv2lite.chat8k's shapes: its
+# decode step (128 slots of an 8192 cache, positions from the cell's
+# prompt and output distributions) and 512-wide chunks in the step
+# graphs' form (per-row positions over a 4096 or 6144 bucket, the chunk's
+# last 100 positions left for later chunks), on slot 3 of a full cache
+MLA_DECODE = (128, 8192)
+MLA_CHUNKS = ((512, 4096), (512, 6144))
+MLA_HEADS = 16
+# chat8k's traffic (portbench/traffic/chat8k.json): lognormal lengths
+MLA_PROMPT = (2048, 0.8, 256, 6144)      # median, sigma, least, most
+MLA_OUTPUT = (384, 0.8, 32, 2048)
+# kernel vs plain version (the same rounding points, sums in another
+# order: a flipped rounding of P or of o), vs the products (P rounded
+# after the normalisation) and vs the function in fp32 (the output's one
+# bf16 rounding, and P's), as the largest error over the output's scale
+MLA_TOL = {"plain": 1e-2, "products": 2e-2, "fp32": 1e-2}
+
+
+def mla_positions(rng, B: int, T: int) -> np.ndarray:
+    """Each slot's decode position: a prompt length and a share of an
+    output length drawn from chat8k's distributions, at most T - 1."""
+    def draw(median, sigma, lo, hi):
+        return np.clip(np.round(median * np.exp(sigma * rng.standard_normal(
+            B))), lo, hi)
+    prompt = draw(*MLA_PROMPT)
+    out = draw(*MLA_OUTPUT)
+    return np.minimum(prompt + np.floor(rng.random(B) * out), T - 1)
+
+
+def mla_sdpa(q, ckv, qpos):
+    """The same attention as one library call, the yardstick the port
+    never calls: ``F.scaled_dot_product_attention`` with q (B, H, S,
+    576), the cache broadcast to every head as keys and its first 512
+    columns as values, and a boolean mask of each query's visible keys
+    (made once, outside the call).  Returns the call as a function of
+    nothing, whose output is (B, S, H, 512)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import mla_attention as MK
+    B, S, H, D = q.shape
+    T = ckv.shape[1]
+    qt = q.transpose(1, 2)
+    k = ckv[:, None].expand(B, H, T, D)
+    v = ckv[:, None, :, :MK.VALUE_DIM].expand(B, H, T, MK.VALUE_DIM)
+    mask = (torch.arange(T, device=q.device) <= qpos[..., None])[:, None]
+    return lambda: F.scaled_dot_product_attention(
+        qt, k, v, attn_mask=mask, scale=1.0).transpose(1, 2)
+
+
+def mla_case(name: str, q, ckv, qpos, smi: str) -> dict:
+    """The kernel against its plain version and the products on one
+    input, and each of the three against the function in fp32 (the
+    products with nothing rounded but the inputs), its eager call against
+    its graph's replay (also after new positions are copied into the
+    graph's input), and device times beside its least time (``work``'s
+    bytes or operations) and the plain version's, the products' and
+    SDPA's times (``mla_sdpa``, the library's one call)."""
+    from repro_torch.kernels import mla_attention as MK
+    from repro_torch.models import mla
+    B, S, H, _ = q.shape
+    T = ckv.shape[1]
+    R = MK.VALUE_DIM
+    got = MK.mla_attention(q, ckv, qpos)
+    torch.cuda.synchronize()
+    plain = MK.mla_attention_plain(q, ckv, qpos)
+    prods = mla.latent_products(q.float(), ckv, qpos, R)
+    exact = mla.latent_products(q.float(), ckv.float(), qpos, R)
+    scale = float(exact.abs().max())
+    err = lambda x, y: float((x.float() - y.float()).abs().max()) / scale
+    errs = {"plain": err(got, plain), "products": err(got, prods),
+            "products_vs_plain": err(prods, plain),
+            "fp32": err(got, exact), "products_vs_fp32": err(prods, exact)}
+    for k, tol in MLA_TOL.items():
+        if not errs[k] <= tol:
+            raise AssertionError(f"mla {name}: kernel vs {k} {errs[k]:.3g} "
+                                 f"of scale, beyond {tol}")
+    del plain, prods
+    sdpa = mla_sdpa(q, ckv, qpos)
+    try:
+        errs["sdpa_vs_fp32"] = err(sdpa(), exact)
+    except RuntimeError as e:             # no backend takes the call
+        sdpa, errs["sdpa_vs_fp32"] = None, f"{type(e).__name__}: {e}"[:300]
+    del exact
+    # a graph of the call replays the eager call bit for bit
+    pos_g = qpos.clone()
+    MK.mla_attention(q, ckv, pos_g)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_g = MK.mla_attention(q, ckv, pos_g)
+    graph.replay()
+    same = [bool(torch.equal(out_g, got))]
+    moved = torch.clamp(qpos - 57, min=0)
+    pos_g.copy_(moved)
+    graph.replay()
+    same.append(bool(torch.equal(out_g, MK.mla_attention(q, ckv, moved))))
+    torch.cuda.synchronize()
+    if not all(same):
+        raise AssertionError(f"mla {name}: a graph's replay differs from "
+                             f"the eager call: {same}")
+    w = MK.work(B, S, H, T, qpos)
+    bound, bound_by = bound_ms(w["bytes"], w["flops"], torch.bfloat16)
+    kern = lambda: MK.mla_attention(q, ckv, qpos)
+    old = lambda: mla.latent_products(q.float(), ckv, qpos, R)
+    dev, dev_old = device_ms(kern), device_ms(old)
+    ev, ev_old = time_ms(kern), time_ms(old)
+    lib = {"library_ms": None, "library_device_ms": None,
+           "library_kernels": None}
+    if sdpa is not None:
+        lib = {"library_ms": time_ms(sdpa),
+               "library_device_ms": device_ms(sdpa),
+               "library_kernels": {k[:90]: n for k, n in
+                                   device_kernels(sdpa).items()}}
+    plain_ms = time_ms(lambda: MK.mla_attention_plain(q, ckv, qpos), reps=3)
+    row = {"name": name, "shape": [B, S, H, T], "device": smi,
+           "visible_keys": int((torch.clamp(qpos, max=T - 1) + 1)
+                               .amax(1).sum()),
+           "errors": errs, "graph_bitwise": same,
+           "device_ms": dev, "ms": ev, "products_device_ms": dev_old,
+           "products_ms": ev_old, **lib, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": bound_by, "bound_share": bound / dev,
+           "achieved_bytes_per_s": w["bytes"] / (dev / 1e3),
+           "speedup_vs_products": dev_old / dev,
+           "speedup_vs_library": (lib["library_device_ms"] / dev
+                                  if sdpa is not None else None)}
+    print(f"  mla {name}: device {dev:.4f} ms (event {ev:.4f}), bound "
+          f"{bound:.4f} ms {bound_by} ({100 * bound / dev:.1f}%), products "
+          f"{dev_old:.4f} ms ({dev_old / dev:.2f}x), SDPA "
+          f"{lib['library_device_ms']} ms device ({lib['library_kernels']}),"
+          f" plain {plain_ms:.2f} ms; errors {errs}; graph bitwise {same}",
+          flush=True)
+    return row
+
+
+# the model's passes on the card (``mla_model_route``): DeepSeek-V2-Lite
+# at full width over MLA_ROUTE_SLOTS slots of chat8k's 8192-key cache
+# (the cell has 128; fewer keep the products' comparison pass small)
+MLA_ROUTE_SLOTS = 8
+
+
+def mla_model_route(smi: str, device: str = "cuda") -> dict:
+    """DeepSeek-V2-Lite at its published widths (bf16 layers; the MLPs
+    on cuBLAS, ``fused_mlp`` off, so that no plan is solved) over a
+    latent cache of MLA_ROUTE_SLOTS x 8192 filled with random rows: one
+    decode pass at per-row positions drawn as chat8k's, one 512-wide
+    chunk in the step graphs' form (per-row positions over the 6144-key
+    bucket) and the same chunk at one write position (the eager form).
+    Each pass runs ``attn.mla`` once a layer and the kernel takes every
+    call: ``attn.mla_kernel`` == ``attn.mla`` == ``mla_attention``'s
+    launches == layers.  The decode pass again with the route sent to
+    the products (``mla.latent_products``) on the same cache: its logits
+    beside the kernel's (reported; both bf16 through 27 layers)."""
+    from repro_torch.configs.deepseek_v2_lite import CONFIG
+    from repro_torch.kernels import mla_attention as MK
+    from repro_torch.models import build_model, mla
+    from repro_torch.obs.registry import get_registry
+    cfg = dataclasses.replace(CONFIG, fused_mlp=False)
+    model = build_model(cfg)
+    reg = get_registry()
+    with torch.inference_mode():
+        params = model.init_params(
+            torch.Generator(device=device).manual_seed(SEED), device)
+        B, T = MLA_ROUTE_SLOTS, MLA_DECODE[1]
+        gen = torch.Generator(device=device).manual_seed(SEED + 1)
+        cache = model.init_cache(B, T, device=device)
+        cache["layers"]["ckv"].normal_(generator=gen)
+        rng = np.random.default_rng(SEED)
+        pos = torch.tensor(mla_positions(rng, B, T), dtype=torch.int64,
+                           device=device)
+        W, ctx = MLA_CHUNKS[-1]
+        start = ctx - W - 100
+        chunk = torch.randint(0, cfg.vocab, (1, W), generator=gen,
+                              device=device)
+        row = {"layers": {"ckv": cache["layers"]["ckv"][:, 3:4]}}
+        bucket = {"layers": {"ckv": row["layers"]["ckv"][:, :, :ctx]}}
+        passes = {
+            "decode": (cache, torch.randint(0, cfg.vocab, (B, 1),
+                                            generator=gen, device=device),
+                       pos),
+            f"chunk{W}@{ctx} per-row": (bucket, chunk,
+                                        torch.tensor([start], device=device)),
+            f"chunk{W}@{start} one write position": (row, chunk, start)}
+        counts, logits = {}, {}
+        for name, (c, tokens, index) in passes.items():
+            before = (MK.mla_attention.launches, reg.get("attn.mla"),
+                      reg.get("attn.mla_kernel"))
+            logits[name], _ = model.decode_step(params, c, tokens, index)
+            torch.cuda.synchronize()
+            counts[name] = {
+                "mla_attention.launches": MK.mla_attention.launches
+                - before[0], "attn.mla": reg.get("attn.mla") - before[1],
+                "attn.mla_kernel": reg.get("attn.mla_kernel") - before[2]}
+            if set(counts[name].values()) != {cfg.layers}:
+                raise AssertionError(f"mla route, {name}: {counts[name]}, "
+                                     f"not {cfg.layers} of each")
+            if name == "decode":
+                # the same pass on the products, before the chunks write
+                # into the cache: it rewrites the pass's own rows alone
+                versus = mla_decode_versus(model, params, cache, tokens, pos,
+                                           logits[name])
+        chunks = list(logits)[1:]
+        a, b = (logits[k][0, -1].float() for k in chunks)
+        same_chunk = {"equal": bool(torch.equal(a, b)),
+                      "max_abs_diff": float((a - b).abs().max()),
+                      "scale": float(b.abs().max())}
+    report = {"device": smi, "slots": B, "cache": T,
+              "positions": pos.tolist(), "counts": counts,
+              "chunk_forms": same_chunk, "decode_kernel_vs_products": versus}
+    print(f"  the model's passes: {report}", flush=True)
+    del params, cache, row, bucket, logits
+    free_device()
+    return report
+
+
+def mla_decode_versus(model, params, cache, tokens, pos, kernel_logits):
+    """The decode pass again with the route sent to the products
+    (``mla.latent_products``), from the cache the kernel's pass left:
+    the two passes' logits, each row's best token, and how far the
+    kernel's best lies below the products' best in the products' logits
+    (the cell's ``gap``, between the two card paths)."""
+    from repro_torch.kernels import mla_attention as MK
+    from repro_torch.models import mla
+    decode_k = kernel_logits[:, 0].float().clone()
+    orig = mla.kernel_route
+    mla.kernel_route = lambda cfg, ckv: False
+    try:
+        before = MK.mla_attention.launches
+        decode_p, _ = model.decode_step(params, cache, tokens, pos)
+        torch.cuda.synchronize()
+        launches = MK.mla_attention.launches - before
+    finally:
+        mla.kernel_route = orig
+    decode_p = decode_p[:, 0].float()
+    best_p, best_k = decode_p.argmax(-1), decode_k.argmax(-1)
+    gap = (decode_p.gather(-1, best_p[:, None])
+           - decode_p.gather(-1, best_k[:, None]))[:, 0]
+    return {"max_abs_diff": float((decode_k - decode_p).abs().max()),
+            "scale": float(decode_p.abs().max()),
+            "argmax_agree": int((best_p == best_k).sum()),
+            "rows": int(decode_p.shape[0]),
+            "kernel_gap_in_products_logits": float(gap.max()),
+            "products_launches": launches}
+
+
+def mla_phase(smi: str, out: pathlib.Path | None) -> dict:
+    """Phase 24: the latent attention kernel (``kernels.mla_attention``)
+    at chat8k's decode shape and two 512-wide chunks (``mla_case``), with
+    nvcc's report of its registers and spills, then the model's passes
+    through it (``mla_model_route``)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mla_attention as MK
+    report = _build.build()
+    ptxas = [ln.strip() for ln in report.ptxas.get("mla_attention.cu",
+                                                   "").splitlines()
+             if re.search(r"registers|spill|Performance|error", ln)]
+    print("  mla_attention.cu ptxas:\n    " + "\n    ".join(ptxas))
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    B, T = MLA_DECODE
+    H, D = MLA_HEADS, MK.KEY_DIM
+    cache = torch.randn((B, T, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+
+    def queries(B, S):
+        return (0.05 * torch.randn((B, S, H, D), generator=gen,
+                                   device="cuda")).to(torch.bfloat16)
+    rows = []
+    qpos = torch.tensor(mla_positions(rng, B, T), dtype=torch.int64,
+                        device="cuda")[:, None].contiguous()
+    rows.append(mla_case("decode", queries(B, 1), cache, qpos, smi))
+    for W, ctx in MLA_CHUNKS:
+        start = ctx - W - 100
+        pos = torch.arange(start, start + W, device="cuda")[None]
+        rows.append(mla_case(f"chunk{W}@{ctx}", queries(1, W),
+                             cache[3:4, :ctx], pos, smi))
+    del cache
+    free_device()
+    result = {"device": smi, "ptxas": ptxas, "rows": rows,
+              "model": mla_model_route(smi)}
+    if out is not None:
+        (out / "mla_attention.json").write_text(json.dumps(result,
+                                                           indent=1))
+    return result
+
+
+def mla_kernel_entry(mla: dict) -> dict:
+    """Phase 24's line in the ``kernels`` report, beside the fused
+    attention's: the model's launches a pass, and the decode shape's
+    errors, times and bound."""
+    dec = next(r for r in mla["rows"] if r["name"] == "decode")
+    return {
+        "name": "mla_attention (mla_attn, mla_combine)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mla_attention.cu",
+        "replaces": None,
+        "launches": {k: v["mla_attention.launches"]
+                     for k, v in mla["model"]["counts"].items()},
+        "attn.mla_kernel": {k: v["attn.mla_kernel"]
+                            for k, v in mla["model"]["counts"].items()},
+        "errors": dec["errors"], "graph_bitwise": dec["graph_bitwise"],
+        **{k: dec[k] for k in ("device_ms", "ms", "bound_ms", "bound_by",
+                               "bound_share", "products_device_ms",
+                               "library_ms", "library_device_ms",
+                               "plain_ms")},
+        "chunks": {r["name"]: {k: r[k] for k in (
+            "device_ms", "bound_ms", "bound_by", "products_device_ms",
+            "library_device_ms")} for r in mla["rows"]
+            if r["name"] != "decode"},
+        "shape": dec["shape"], "dtype": "bfloat16",
+        "path": f"deepseek-v2-lite serving: a decode pass over "
+                f"{mla['model']['slots']} slots of {mla['model']['cache']}, "
+                f"512-wide chunks per-row and at one write position"}
+
+
 def time_generate(reps: int, smi: str) -> None:
     """Phase 5's static generate alone: llama3-8b at its published
     widths, bf16, fused MLP, FULL's batch, prompt and new tokens, weights
@@ -5651,6 +5969,8 @@ def main() -> None:
                          f"{PHASE5_TIMED_RUNS} times (time_generate)")
     ap.add_argument("--attention", action="store_true",
                     help="only phase 23: the fused attention kernel")
+    ap.add_argument("--mla", action="store_true",
+                    help="only phase 24: the latent attention kernel")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on "
@@ -5677,6 +5997,19 @@ def main() -> None:
         print(f"  {smi}; torch {torch.__version__}")
         with phase("23 the fused attention kernel"):
             attention_phase(smi, out)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
+    if args.mla:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        print(f"  {smi}; torch {torch.__version__}")
+        with phase("24 the latent attention kernel"):
+            mla = mla_phase(smi, out)
+        print(json.dumps({"kernels": [mla_kernel_entry(mla)]}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -6000,6 +6333,11 @@ def main() -> None:
                "and the walk, timed, and in stablelm-1.6b's 2 x 4096 "
                "training step"):
         attn = attention_phase(smi, out)
+    free_device()
+    with phase("24 the latent attention kernel: against its plain version "
+               "and the products at dsv2lite.chat8k's decode and chunk "
+               "shapes, graph replays bit for bit, timed"):
+        mla = mla_phase(smi, out)
 
     b1 = next(r for r in b1_rows if r["shape"] == [4, 14336, 4096])
     b2 = next(r for r in b2_rows if r["shape"] == [4, 128, 64])
@@ -6052,6 +6390,7 @@ def main() -> None:
         **{k: t4k[k] for k in ("forward", "backward", "forward_backward")},
         "shape": t4k["shape"], "dtype": "bfloat16",
         "path": "stablelm-1.6b training, 2 x 4096"})
+    kernels.append(mla_kernel_entry(mla))
     if out is not None:
         (out / "chip_smoke.json").write_text(json.dumps(
             {"device": smi, "mma": mma, "b1": b1_rows,
@@ -6078,6 +6417,7 @@ def main() -> None:
              "sharded_training": sharded["report"],
              "roofline": roof,
              "attention": attn,
+             "mla_attention": mla,
              "launches": runs,
              "shapes": shapes,
              "kernels": kernels,

@@ -13,6 +13,10 @@ plain PyTorch version beside each.
   attention   — fused attention with its own backward, for attention
                 without a cache (replaces no Pallas kernel: the reference
                 leaves attention to XLA).
+  mla_attention — absorbed latent attention over the latent slot cache
+                (replaces no Pallas kernel: latent attention exists only
+                in the port); imported as a module, since the wrapper
+                shares its name.
 
 ops.py holds the public GEMM wrappers, ref.py the plain oracles,
 _build.py the nvcc build and ctypes binding (run at first launch, never

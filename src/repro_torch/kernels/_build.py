@@ -25,7 +25,7 @@ import types
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("goma_gemm.cu", "goma_fused.cu", "wkv6.cu", "mamba2_ssd.cu",
-           "attention.cu")
+           "attention.cu", "mla_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
@@ -54,6 +54,8 @@ SIGNATURES = {
     "attn_tile": [_I, _I],
     "attn_fwd_launch": [_P] * 10 + [_I] * 8 + [_F, _P],
     "attn_bwd_launch": [_P] * 16 + [_I] * 9 + [_F, _P],
+    "mla_attn_config": [_I],
+    "mla_attn_launch": [_P] * 6 + [_I] * 4 + [_L, _I, _I, _P],
 }
 
 

@@ -21,10 +21,14 @@ Two forms compute the same attention:
   q_nope W_kvb_k[h]^T is kv_lora_rank wide, so attention is MQA over
   [c_kv | k_pe] keys with c_kv values, and the latent output times
   W_kvb_v[h] is the head's v-weighted sum.  Products take the compute
-  dtype with fp32 sums and fp32 results; the softmax is fp32.
+  dtype with fp32 sums and fp32 results; the softmax is fp32.  On the
+  card it runs through the latent attention kernel
+  (``kernels.mla_attention``), which reads each row's visible keys once;
+  on the CPU by two products over the whole cache.
 
 Each call opens an ``attn.mla`` span (rows, width, context: the keys
-walked) and counts ``attn.mla`` in the registry.
+in reach) and counts ``attn.mla`` in the registry, and
+``attn.mla_kernel`` when the kernel runs it.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import math
 
 import torch
 
+from ..kernels import mla_attention as MK
 from ..obs.registry import get_registry
 from ..obs.tracing import span as _span
 from . import layers as L
@@ -190,17 +195,47 @@ def _expanded(p: dict, cfg, q_nope, q_pe, ckv, positions):
     return out[..., :vd].to(ckv.dtype)
 
 
-def _absorbed(p: dict, cfg, q_nope, q_pe, ckv, qpos, start):
+def kernel_route(cfg, ckv: torch.Tensor) -> bool:
+    """Whether an absorbed call runs the latent attention kernel
+    (``kernels.mla_attention``): at the widths it is built for (rank 512,
+    rope 64), on the card, and on the meta tensors of a trace, where it
+    stands as one opaque call as it runs on the card.  The CPU keeps the
+    products; the kernel's plain version runs there only when called
+    directly."""
+    return (cfg.kv_lora_rank == MK.VALUE_DIM
+            and ckv.shape[-1] == MK.KEY_DIM
+            and (ckv.is_cuda or ckv.device.type == "meta"))
+
+
+def latent_products(q: torch.Tensor, ckv: torch.Tensor, qpos,
+                    R: int) -> torch.Tensor:
+    """Attention of the scaled latent queries q (B, S, H, R + rope) over
+    ckv (B, T, R + rope) by two products over every cached key: fp32
+    scores, the keys past each query's position ``qpos`` (B, S) masked,
+    an fp32 softmax, P rounded to ckv's dtype.  Returns o_lat (B, S, H,
+    R) in ckv's dtype."""
+    B, S, H, _ = q.shape
+    T = ckv.shape[1]
+    dt = ckv.dtype
+    s = _bmm32(q.reshape(B, S * H, -1).to(dt), ckv.transpose(1, 2))
+    kpos = torch.arange(T, device=s.device)
+    late = kpos[None, None, :] > qpos[..., None].to(torch.int64)
+    s.view(B, S, H, T).masked_fill_(late[:, :, None, :], -torch.inf)
+    prob = torch.softmax(s, -1).to(dt)
+    o_lat = _bmm32(prob, ckv[..., :R])                           # (B, S*H, R)
+    return o_lat.reshape(B, S, H, R).to(dt)
+
+
+def _absorbed(p: dict, cfg, q_nope, q_pe, ckv, qpos):
     """Attention over the latent cache ckv (B, T, R + rope): MQA with
     [c_kv | k_pe] keys and c_kv values, queries [q_nope W_kvb_k[h]^T |
     q_pe] scaled before they are rounded to the cache's dtype.  Key t is
-    visible to a query at position p when t <= p.  With ``start`` (one
-    write position for every row) keys before it are visible to every
-    query and only the chunk's own keys are masked, causally; else each
-    row is masked at its own positions ``qpos`` (B, S).  Returns
-    (B, S, H, v)."""
+    visible to the query of row b at column s when t <= qpos[b, s]
+    (B, S).  The latent attention kernel runs it where ``kernel_route``
+    takes it (counted as ``attn.mla_kernel``), reading each row's visible
+    keys alone; elsewhere ``latent_products``.  Returns (B, S, H, v)."""
     B, S, H, nope = q_nope.shape
-    T, R = ckv.shape[1], cfg.kv_lora_rank
+    R = cfg.kv_lora_rank
     w_k, w_v = _split_kvb(p, cfg)
     dt = ckv.dtype
     scale = softmax_scale(cfg)
@@ -208,18 +243,12 @@ def _absorbed(p: dict, cfg, q_nope, q_pe, ckv, qpos, start):
     q_lat = _bmm32(q_nope.permute(2, 0, 1, 3).reshape(H, B * S, nope), w_k)
     q = torch.cat([q_lat.reshape(H, B, S, R).permute(1, 2, 0, 3),
                    q_pe.to(_F32)], -1) * scale
-    s = _bmm32(q.reshape(B, S * H, -1).to(dt), ckv.transpose(1, 2))
-    s4 = s.view(B, S, H, T)
-    if start is not None:
-        own = torch.ones(S, S, dtype=torch.bool, device=s.device).triu(1)
-        s4[..., start:].masked_fill_(own[:, None, :], -torch.inf)
+    if kernel_route(cfg, ckv):
+        _REG.inc("attn.mla_kernel")
+        o_lat = MK.mla_attention(q.to(dt), ckv, qpos)
     else:
-        kpos = torch.arange(T, device=s.device)
-        late = kpos[None, None, :] > qpos[..., None].to(torch.int64)
-        s4.masked_fill_(late[:, :, None, :], -torch.inf)
-    prob = torch.softmax(s, -1).to(dt)
-    o_lat = _bmm32(prob, ckv[..., :R])                           # (B, S*H, R)
-    o_lat = o_lat.reshape(B * S, H, R).transpose(0, 1).to(dt)   # (H, B*S, R)
+        o_lat = latent_products(q, ckv, qpos, R)
+    o_lat = o_lat.reshape(B * S, H, R).transpose(0, 1)           # (H, B*S, R)
     out = _bmm32(o_lat, w_v)                                     # (H, B*S, v)
     return out.transpose(0, 1).reshape(B, S, H, -1).to(dt)
 
@@ -256,8 +285,11 @@ def mla_apply(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
         else:
             if per_row:
                 L.write_rows(cache["ckv"], ckv, cache_index)
+                qpos = positions
             else:
                 cache["ckv"][:, start:start + S] = ckv.to(cache["ckv"].dtype)
+                qpos = (start + torch.arange(S, device=ckv.device)).expand(
+                    B, S).contiguous()
             o = _absorbed(p, cfg, q_nope, q_pe, cache["ckv"][:, :context],
-                          positions, start)
+                          qpos)
         return L.dense(p["wo"], o.reshape(B, S, -1))

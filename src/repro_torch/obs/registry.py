@@ -34,6 +34,9 @@ Conventions used across the repo:
                                   kept on the walk
   attn.mla                        latent-attention calls (``models.mla``;
                                   an expanded one also counts attn.walk)
+  attn.mla_kernel                 of them, those run by the latent
+                                  attention kernel
+                                  (``kernels.mla_attention``)
   moe.dropless.calls              dropless expert-layer calls
   moe.rows_routed                 (token, expert) rows they routed (the
                                   rows of each expert are summed on the
